@@ -5,18 +5,25 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels with nvcc;
+  1. the card's name and power limit; build the CUDA kernels with nvcc
+     (one process per source, all at once);
   2. K1 (``bini_apply``) against its plain PyTorch version at three shapes;
   3. K2 (``bini_cg``) against its plain version at the crop buckets and the
      full 240x320 field;
+  3b. K3 (``phase_counts``) against its plain version at (3, 128, 128) and
+     at the select rounds' (384 | 192, 256, 256), every count exact;
   4. BiNI on a 480x640 normal field with 8 masks, which takes the
      K1-per-iteration route, against the plain route;
-  5. the slice: two-frame SfM on the synthetic planes sequence at 480x640
-     through the structured fake frontend, which integrates on K2;
-  6. at 96x128 the card agrees with the CPU: the frontend's keyframe, and
-     the photometric cost and its gradients at the solve's init.
+  5. the two-frame slice: two-frame SfM on the synthetic planes sequence at
+     480x640 through the structured fake frontend, which integrates on K2;
+  6. at 96x128 the card agrees with the CPU: the frontend's keyframe (also
+     with the device SAM selection and the depth split), and the
+     photometric cost and its gradients at the solve's init;
+  7. the VO slice: ``eval.e2e_synthetic.run_e2e("adam")`` at full width on
+     the card (480x640 frames, the device SAM selection on K3, BiNI on K2,
+     the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05.
 
-Launch counts are reset just before the paths of phases 4 and 5 and read
+Launch counts are reset just before the paths of phases 4, 5 and 7 and read
 just after; a kernel of a path that was not launched there fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it, and after the path each kernel is checked and timed on them.
@@ -43,9 +50,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # flops per pixel: the stencil of _apply_math (8 + 7) plus <p, Ap> (2) for
 # K1; for one K2 CG iteration the masked stencil (16), three masked dots
-# (9), the x, r and p updates (6) and the preconditioner (2)
+# (9), the x, r and p updates (6) and the preconditioner (2).  K3 forms one
+# row interpolant (3 flops) per low-res column and row phase inside the
+# region, and per upsampled pixel inside it one interpolant (3) and three
+# comparisons (its integer count additions are not float work)
 K1_FLOPS_PER_PIXEL = 17
 K2_FLOPS_PER_PIXEL_ITER = 33
+K3_FLOPS_ROW_INTERP = 3
+K3_FLOPS_PER_UP_PIXEL = 6
+VO_FRAMES = 12
 
 
 def fail(msg: str):
@@ -207,6 +220,57 @@ def check_k2(torch, bini, stencil):
     return rows
 
 
+def upsample_counts(torch, x, s, input_hw):
+    """The library route to K3's statistics: PyTorch's bilinear x s
+    upsample, cropped to the region, and the three masked counts."""
+    import torch.nn.functional as F
+
+    up = F.interpolate(x[:, None], scale_factor=s, mode="bilinear", align_corners=False)[:, 0]
+    up = up[:, : input_hw[0], : input_hw[1]]
+    return tuple(torch.sum(up > t, dim=(1, 2), dtype=torch.int32) for t in (1.0, -1.0, 0.0))
+
+
+def k3_row(torch, k3, x, s, input_hw) -> dict:
+    """K3 against phase_counts_reference on one input, every count exact;
+    kernel, plain and library (upsample + counts) times; the bound (the slab
+    read once, three counts written; the region's interpolants and
+    comparisons).  The library route's count difference is printed, not
+    held: it interpolates in its own order."""
+    N, S, _ = x.shape
+    got = k3.phase_counts(x, s, input_hw)
+    want = k3.phase_counts_reference(x, s, input_hw)
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    lib_err = max(int((g - w).abs().max()) for g, w in zip(got, upsample_counts(torch, x, s, input_hw)))
+    ms = time_ms(torch, lambda: k3.phase_counts(x, s, input_hw), reps=50)
+    plain_ms = time_ms(torch, lambda: k3.phase_counts_reference(x, s, input_hw), reps=3)
+    library_ms = time_ms(torch, lambda: upsample_counts(torch, x, s, input_hw), reps=5)
+    R, C = min(input_hw[0], s * S), min(input_hw[1], s * S)
+    nbytes = (N * S * S + 3 * N) * 4
+    flops = N * (K3_FLOPS_ROW_INTERP * R * S + K3_FLOPS_PER_UP_PIXEL * R * C)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"K3 {N}x{S}x{S} s={s} hw={tuple(input_hw)}: max abs err {err} (library route "
+          f"{lib_err}); kernel {ms * 1e3:.1f} us, plain {plain_ms:.3f} ms, library "
+          f"{library_ms:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+    if err != 0:
+        fail(f"K3 disagrees with its plain version at {N}x{S}x{S}")
+    return {"shape": [N, S, S], "input_hw": list(input_hw), "max_abs_err": err,
+            "library_count_diff": lib_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops}
+
+
+def check_k3(torch, k3):
+    """Phase 3b: K3 against its plain version at (3, 128, 128) and at the
+    select rounds' shapes, on logits scaled like the fake decoder's
+    margins."""
+    g = torch.Generator().manual_seed(3)
+    rows = []
+    for N, S, hw in [(3, 128, (503, 491)), (384, 256, (768, 1024)), (192, 256, (768, 1024))]:
+        x = (torch.randn(N, S, S, generator=g) * 4).cuda()
+        rows.append(k3_row(torch, k3, x, 4, hw))
+    return rows
+
+
 def check_bini_480(torch, bini, stencil):
     """Phase 4: BiNI at 480x640 with 8 Voronoi masks, the K1 route, against
     the plain route; then K1 against its plain version on the inputs of
@@ -252,7 +316,7 @@ def check_bini_480(torch, bini, stencil):
     return launches, rows
 
 
-def slice_config(H, W, small=False):
+def slice_config(H, W, small=False, disc=False):
     from super_primitive_tpu_torch.config import load_config
 
     return load_config({
@@ -265,7 +329,7 @@ def slice_config(H, W, small=False):
             "normals": {"integration_shape": [H // 2, W // 2], "network_dim": [H, W]},
             "cg_max_iter": 150 if small else 1000,
             "cg_tol": 1e-3,
-            "check_for_depth_disc": False,
+            "check_for_depth_disc": disc,
         },
         "sam_params": {"infer_resolution": [H, W] if small else [H // 2, W // 2]},
         "alignment": {"pyramid_min": 0, "pyramid_max": 2 if small else 4},
@@ -310,8 +374,9 @@ def run_slice(torch, stencil):
 def small_input_agreement(torch):
     """Phase 6: at 96x128 the card agrees with the CPU (plain versions): the
     frontend gives identical regions and keypoints and log-depths within
-    1e-3; the photometric cost at the solve's init, relative 1e-5, and its
-    gradients, relative 1e-4 of their largest entry."""
+    1e-3, with the host FakeSAM and with the device SAM selection and the
+    depth split; the photometric cost at the solve's init, relative 1e-5,
+    and its gradients, relative 1e-4 of their largest entry."""
     import numpy as np
 
     from super_primitive_tpu_torch.cost import photometric as ph
@@ -333,6 +398,21 @@ def small_input_agreement(torch):
     ld_err = float(np.abs(kf["cuda"]["logdepth_perseg"] - kf["cpu"]["logdepth_perseg"]).max())
     same = (np.array_equal(kf["cuda"]["regions"], kf["cpu"]["regions"])
             and np.array_equal(kf["cuda"]["keypoints_rc"], kf["cpu"]["keypoints_rc"]))
+    kf_d = {}
+    for dev in ("cuda", "cpu"):
+        fe = StructuredFakeFrontend(slice_config(96, 128, small=True, disc=True), n_cells=24,
+                                    device=dev, device_sam=True)
+        fe.observe(src)
+        kf_d[dev] = fe.process_to_kf(src["image"], src["intrinsics"])
+    ld_err_d = float(np.abs(kf_d["cuda"]["logdepth_perseg"]
+                            - kf_d["cpu"]["logdepth_perseg"]).max())
+    same_d = (np.array_equal(kf_d["cuda"]["regions"], kf_d["cpu"]["regions"])
+              and np.array_equal(kf_d["cuda"]["keypoints_rc"], kf_d["cpu"]["keypoints_rc"]))
+    print(f"96x128 card vs CPU, device SAM + split: {kf_d['cpu']['regions'].shape[0]} "
+          f"segments, regions/keypoints identical {same_d}, max |dlogdepth| "
+          f"{ld_err_d:.2e}", flush=True)
+    if not (same_d and ld_err_d <= 1e-3):
+        fail("the card disagrees with the CPU on the device-selection keyframe")
 
     T_init = (np.linalg.inv(trg["T"]) @ src["T"]).astype(np.float32)
     T_init = T_init @ se3.exp(torch.full((6,), 0.02)).numpy()
@@ -359,6 +439,48 @@ def small_input_agreement(torch):
         fail("the card disagrees with the CPU on the small input")
 
 
+def run_vo(torch, stencil, k3):
+    """Phase 7: the VO slice at full width on the card; then K2 and K3
+    against their plain versions on the inputs of the path's first call at
+    each shape."""
+    from super_primitive_tpu_torch.eval.e2e_synthetic import run_e2e
+
+    with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        r = run_e2e("adam", frames=VO_FRAMES, device="cuda",
+                    save_path=str(Path("build") / "chip_smoke" / "vo"))
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    timer, ate = r["timer"], r["ate"]["rmse"]
+    track = timer.summary()["track"]
+    kf_s = [w for _, w, _ in r["kf_add_log"]]
+    segs = [n for _, _, n in r["kf_add_log"]]
+    stages = ("normals", "sam_round1", "sam_round2", "sam_edges", "sam_masks", "bini",
+              "host_pack", "split_disc", "split_cc", "split_parts", "split", "kf_frontend",
+              "kf_depth_reinit", "kf_slot_put", "track", "mapping_init", "mapping_map",
+              "mapping_supp", "gating")
+    split = {k: round(timer.totals[k], 4) for k in stages if k in timer.totals}
+    summary = {"frames": r["frames"], "keyframes": r["keyframes"], "wall_s": r["wall_s"],
+               "ms_per_tracked_frame": track["mean_ms"], "kf_add_s": kf_s,
+               "segments_per_kf": segs, "ate_sim3": ate, "launches": launches,
+               "stage_s": split}
+    print(f"VO slice 480x640, {r['frames']} frames: {r['keyframes']} keyframes, wall "
+          f"{r['wall_s']:.2f} s, {track['mean_ms']:.1f} ms per tracked frame, keyframe add "
+          f"{', '.join(f'{w:.2f}' for w in kf_s)} s, segments {segs}, Sim(3) ATE {ate:.5f}; "
+          f"launches {launches}", flush=True)
+    print("VO stage seconds: " + json.dumps(split), flush=True)
+    if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
+        fail("the VO slice did not launch K2 and K3")
+    if r["keyframes"] < 2:
+        fail("the VO slice made fewer than 2 keyframes")
+    if not (math.isfinite(ate) and ate < 0.05):
+        fail(f"the VO slice's Sim(3) ATE {ate} is not below 0.05")
+    k2_rows = [k2_row(torch, stencil, *args) for args in k2_inputs.values()]
+    k3_rows = [k3_row(torch, k3, *args) for args in k3_inputs.values()]
+    return launches, k2_rows, k3_rows, summary
+
+
 def main() -> int:
     import torch
 
@@ -374,6 +496,7 @@ def main() -> int:
         return 1
     from super_primitive_tpu_torch.integrate import bini
     from super_primitive_tpu_torch.ops import _build, stencil
+    from super_primitive_tpu_torch.ops import phase_counts as k3
     from super_primitive_tpu_torch.run_sfm import require_device
 
     smi = subprocess.run(
@@ -391,31 +514,45 @@ def main() -> int:
 
     k1 = check_k1(torch, bini, stencil)
     k2 = check_k2(torch, bini, stencil)
+    k3_checks = check_k3(torch, k3)
     k1_launches, k1_path = check_bini_480(torch, bini, stencil)
     k2_launches, k2_path = run_slice(torch, stencil)
     small_input_agreement(torch)
+    vo_launches, k2_vo, k3_vo, vo = run_vo(torch, stencil, k3)
 
-    def entry(name, replaces, launches, path_rows, other_rows):
+    def entry(name, replaces, launches, path_rows, other_rows, **extra):
         """One kernel's line: its numbers summed over the path's recorded
         inputs (one call at each shape the path gave it)."""
         nbytes = sum(r["bytes"] for r in path_rows)
         flops = sum(r["flops"] for r in path_rows)
         b_ms, b_by = bound_ms(nbytes, flops)
+        lib = [r.get("library_ms") for r in path_rows]
         return {"name": name, "route": "cuda",
                 "source": f"super_primitive_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in path_rows),
                 "ms": sum(r["ms"] for r in path_rows),
                 "plain_ms": sum(r["plain_ms"] for r in path_rows),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "path_shapes": path_rows, "check_shapes": other_rows}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if None in lib else sum(lib),
+                **extra, "path_shapes": path_rows, "check_shapes": other_rows}
 
     kernels = [
         entry("bini_apply", "super_primitive_tpu/ops/pallas_stencil.py:71",
-              k1_launches["bini_apply"], k1_path, k1),
+              k1_launches["bini_apply"], k1_path, k1,
+              launches_by_path={"bini_480": k1_launches["bini_apply"],
+                                "two_frame": k2_launches["bini_apply"],
+                                "vo": vo_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
-              k2_launches["bini_cg"], k2_path, k2),
+              vo_launches["bini_cg"], k2_vo, k2,
+              launches_by_path={"two_frame": k2_launches["bini_cg"],
+                                "vo": vo_launches["bini_cg"]},
+              two_frame_path_shapes=k2_path),
+        entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
+              vo_launches["phase_counts"], k3_vo, k3_checks,
+              launches_by_path={"vo": vo_launches["phase_counts"]}),
     ]
+    print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

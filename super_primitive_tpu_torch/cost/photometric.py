@@ -1,7 +1,8 @@
 """Dense photometric reprojection cost over the fixed-shape PointBundle.
 
-Port of ``super_primitive_tpu/cost/photometric.py`` (colour mode, no affine
-brightness term: the two-frame solve uses neither):
+Port of ``super_primitive_tpu/cost/photometric.py`` (colour mode): the
+single-target cost of tracking and two-frame SfM, and the batched cost of
+mapping (one source keyframe against stacked targets).  Per point:
 
   1. spread each segment's scalar log-depth shift over its frozen per-point
      log-depths;
@@ -9,7 +10,9 @@ brightness term: the two-frame solve uses neither):
   3. transform into the target frame (pose = T_target_from_source);
   4. project with K, normalize by geometry dims, bilinear-sample the target
      pyramid image (normalized coords make the sampling resolution-free);
-  5. masked L1, mean over channels x region points (padding excluded).
+  5. optional affine brightness compensation
+     exp(-(a_t - a_s)) * rgb + (b_t - b_s);
+  6. masked L1, mean over channels x region points (padding excluded).
 
 Source samples are pose/depth independent and computed once per level.
 
@@ -30,8 +33,10 @@ from ..geometry import projection
 from ..keyframe import PointBundle
 from ..ops.sampling import bilinear_sample, bilinear_sample_packed
 
-# The reference uses z > 1e-7 in the single-target path.
+# The reference uses z > 1e-7 in the single-target path and z > 1e-6 in
+# the batched path.
 Z_VALID_SINGLE = 1e-7
+Z_VALID_BATCH = 1e-6
 
 
 class SourceSamples(NamedTuple):
@@ -67,6 +72,45 @@ def precompute_source(
     return SourceSamples(pixels=pixels, valid=valid & bundle.valid)
 
 
+def affine_compensate(trg_pixels: torch.Tensor, src_affine: torch.Tensor,
+                      trg_affine: torch.Tensor) -> torch.Tensor:
+    """Affine brightness model on the RGB channels:
+    rgb' = exp(-(a_t - a_s)) * rgb + (b_t - b_s).  Leading batch dims of the
+    affine parameters broadcast over points."""
+    a = (trg_affine[..., 0] - src_affine[..., 0])[..., None, None]
+    b = (trg_affine[..., 1] - src_affine[..., 1])[..., None, None]
+    rgb = torch.exp(-a) * trg_pixels[..., :3] + b
+    return torch.cat([rgb, trg_pixels[..., 3:]], dim=-1)
+
+
+def photometric_cost_batch(
+    bundle: PointBundle,
+    src: SourceSamples,
+    trg_packed: torch.Tensor,
+    K: torch.Tensor,
+    geo_dims: tuple[int, int],
+    kp_logdepth: torch.Tensor,
+    kp_base_logdepth: torch.Tensor,
+    poses: torch.Tensor,
+    affine: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One source keyframe against B stacked targets: ``trg_packed`` (B, H,
+    W, 4C) packed target images, ``poses`` (B, 4, 4) T_target_from_source,
+    ``affine`` (source (2,), targets (B, 2)) or None.  Returns per-target
+    residuals (B,)."""
+    logd = spread_logdepth(bundle, kp_logdepth, kp_base_logdepth)
+    pts = projection.unproject(bundle.uv, torch.exp(logd), K)
+    pts_t = projection.transform(pts[None], poses)                 # (B, P, 3)
+    coords = normalized_image_coords(projection.project(pts_t, K), geo_dims)
+    trg_pixels, trg_valid = bilinear_sample_packed(trg_packed, coords)
+    trg_valid = trg_valid & (pts_t[..., 2].detach() > Z_VALID_BATCH)
+    if affine is not None:
+        trg_pixels = affine_compensate(trg_pixels, affine[0], affine[1])
+    full_mask = (src.valid & trg_valid).to(trg_pixels.dtype)
+    diff = torch.abs((src.pixels[..., :3] - trg_pixels[..., :3]) * full_mask[..., None])
+    return torch.sum(diff, dim=(-2, -1)) / (3 * max(bundle.num_valid, 1))
+
+
 def photometric_cost(
     bundle: PointBundle,
     src: SourceSamples,
@@ -76,11 +120,13 @@ def photometric_cost(
     kp_logdepth: torch.Tensor,
     kp_base_logdepth: torch.Tensor,
     pose: torch.Tensor,
+    affine: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Single-target photometric cost, a scalar (mean over channels x region
     points).  ``trg_packed`` is the target image after
     :func:`pack_bilinear_taps` (hoisted out of the optimizer loop by the
-    caller); ``pose`` is T_target_from_source (4, 4)."""
+    caller); ``pose`` is T_target_from_source (4, 4); ``affine`` is
+    (source, target) brightness parameters or None."""
     logd = spread_logdepth(bundle, kp_logdepth, kp_base_logdepth)
     z = torch.exp(logd)
     pts = projection.unproject(bundle.uv, z, K)
@@ -90,6 +136,8 @@ def photometric_cost(
     coords = normalized_image_coords(uv_t, geo_dims)
     trg_pixels, trg_valid = bilinear_sample_packed(trg_packed, coords)
     trg_valid = trg_valid & (pts_t[..., 2].detach() > Z_VALID_SINGLE)
+    if affine is not None:
+        trg_pixels = affine_compensate(trg_pixels, affine[0], affine[1])
 
     # colour mode: the RGB channels only, even when normals are appended
     src_pixels = src.pixels[..., :3]

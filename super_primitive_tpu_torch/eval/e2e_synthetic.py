@@ -1,0 +1,91 @@
+"""Config and entry point of the synthetic end-to-end odometry run.
+
+Port of ``super_primitive_tpu/eval/e2e_synthetic.py``: monocular VO on the
+synthetic planes sequence through the structured fake frontend, at the
+shapes of the JAX package's e2e workload (480x640 frames, 240x320 keyframe
+geometry, SAM at 240x320, window 4, 128 + 32 prompts, the depth split on).
+``small=True`` cuts it to 96x128 frames and 48x64 geometry.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+
+def make_e2e_config(solver: str = "adam", small: bool = False, save_path: str | None = None):
+    """The e2e synthetic odometry Config (the JAX package's shapes)."""
+    from ..config import load_config
+
+    H, W, pow_ = (96, 128, 0) if small else (480, 640, 1)
+    extra = {} if solver == "adam" else {"solver": solver}
+    return load_config({
+        "save_path": save_path or os.path.join(tempfile.gettempdir(), f"sp_e2e_planes_{solver}"),
+        "window_size": 4,
+        "frontend": {
+            "downsample_pow": pow_,
+            "num_pts": 128, "num_pts_active": 32,
+            "normals": {"integration_shape": [48, 64] if small else [240, 320],
+                        "network_dim": [H, W]},
+            "cg_max_iter": 300, "cg_tol": 1e-3,
+            "check_for_depth_disc": True,
+        },
+        "sam_params": {"infer_resolution": [96, 128] if small else [240, 320]},
+        "aligment": {
+            "mono_init": True,
+            "affine_compensation": False,
+            "opt_supporting": True,
+            "init_frames": 3,
+            "mapping": {"supp_every_n": 3, "init_steps": 60, "steps": 40,
+                        "continual_steps": 5, **extra},
+            "track": {"pyramid_min": 0, "pyramid_max": 3, "steps": [0, 0, 300], **extra},
+        },
+        "kf": {"depth_validity_ratio": 0.60, "translation_thresh": 0.08},
+    })
+
+
+def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
+            n_cells: int | None = None, path: str = "auto", device_sam: bool = True,
+            seed: int = 0, device: str | torch.device = "cuda",
+            save_path: str | None = None) -> dict:
+    """Run the synthetic sequence end to end on ``device``; returns a stats
+    dict: ate (Sim(3) ATE over all tracked frames), wall_s, frames,
+    keyframes, kf_add_log, timer (StageTimer), odom (the Odometry object)."""
+    from ..data.synthetic import PlanesSequence
+    from ..frontend.fakes import StructuredFakeFrontend
+    from ..odometry.odometry import Odometry
+    from ..run_sfm import require_device
+    from .trajectory import ate_rmse
+
+    device = require_device(device)
+    H, W = (96, 128) if small else (480, 640)
+    if n_cells is None:
+        n_cells = 24 if small else 64
+    if path == "auto":
+        path = "orbit" if frames > 40 else "linear"
+    cfg = make_e2e_config(solver, small=small, save_path=save_path)
+    ds = PlanesSequence(n_frames=frames, H=H, W=W, path=path)
+    fe = StructuredFakeFrontend(cfg, seed=seed, n_cells=n_cells, device=device,
+                                device_sam=device_sam)
+    odom = Odometry(cfg, fe, ds, device=device)
+    t0 = time.perf_counter()
+    traj = odom.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+
+    est = {ts: np.asarray(T) for ts, T in odom.global_track_trajectory.items()}
+    gt = {ts: np.asarray(ds.poses[int(float(ts))], np.float32) for ts in est}
+    return {
+        "ate": ate_rmse(gt, est),
+        "wall_s": wall,
+        "frames": len(ds),
+        "keyframes": len(traj),
+        "kf_add_log": odom.kf_add_log,
+        "timer": odom.timer,
+        "odom": odom,
+    }

@@ -1,21 +1,23 @@
-"""SAM mask generation, host selection path.
+"""SAM mask generation.
 
-Port of ``super_primitive_tpu/frontend/mask_generation.py`` (the path of
-``infer_masks`` without a device ``select_round``): random query points ->
-SAM multimask logits -> IoU + stability filtering with smallest-good-mask
-selection -> box NMS -> coverage-driven active resampling of uncovered
-16x-pooled cells -> second SAM round -> edge maps from mask gradients ->
-off-mask keypoint filtering.
+Port of ``super_primitive_tpu/frontend/mask_generation.py``: random query
+points -> SAM multimask logits -> IoU + stability filtering with
+smallest-good-mask selection -> box NMS -> coverage-driven active
+resampling of uncovered 16x-pooled cells -> second SAM round -> edge maps
+from mask gradients -> off-mask keypoint filtering.
 
 The mask model is injected as ``predict(image, keypoints_norm) ->
-(mask_logits (B, 3, H, W), iou (B, 3))``.  Selection and filtering are
-numpy (the candidate count is data dependent); the edge maps run in
-PyTorch on the frontend's device.  Query points come from an explicit
+(mask_logits (B, 3, H, W), iou (B, 3))``, whose selection and filtering
+run here in numpy, or as a device predictor whose ``select_round`` does
+the selection and NMS on the card (``nets/sam/predictor.py``).  The edge
+maps run in PyTorch on the frontend's device.  Query points come from an explicit
 ``numpy.random.Generator``, so the port draws the same points as the JAX
 package from the same seed.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -80,12 +82,18 @@ def smallest_good_mask_batch(
     iou_threshold: float = 0.0,
     stability_score_thresh: float = 0.90,
     select_smallest: bool = True,
+    stability: np.ndarray | None = None,
+    areas: np.ndarray | None = None,
 ):
     """Reference smallest_good_mask_batch (mask_generation.py:13-95).
 
     select_smallest: keep keypoints with >= 1 good candidate and pick their
     smallest good binarized mask; otherwise flatten all candidates and filter
     per-candidate.
+
+    ``stability``/``areas`` (B, 3): full-resolution statistics from a
+    device predictor's statistics path; ``mask_logits`` may then be
+    binarised bool masks at working resolution.
 
     Returns dict(masks bool (M, H, W), iou_preds (M,), keypoints_ids (M,),
     boxes (M, 4)).
@@ -102,14 +110,18 @@ def smallest_good_mask_batch(
                 mask_logits[keep_kp], iou_pred[keep_kp], good[keep_kp], kp_ids[keep_kp]
             )
         if stability_score_thresh > 0:
-            stab = calculate_stability_score(mask_logits, MASK_THRESH, STABILITY_OFFSET)
+            stab = (stability[kp_ids] if stability is not None else
+                    calculate_stability_score(mask_logits, MASK_THRESH, STABILITY_OFFSET))
             good &= stab >= stability_score_thresh
             keep_kp = good.any(axis=1)
             mask_logits, iou_pred, good, kp_ids = (
                 mask_logits[keep_kp], iou_pred[keep_kp], good[keep_kp], kp_ids[keep_kp]
             )
-        masks_bin = mask_logits > MASK_THRESH
-        sizes = masks_bin.sum(axis=(-2, -1)).astype(np.float64)
+        masks_bin = mask_logits if mask_logits.dtype == bool else mask_logits > MASK_THRESH
+        if areas is not None:
+            sizes = areas[kp_ids].astype(np.float64)
+        else:
+            sizes = masks_bin.sum(axis=(-2, -1)).astype(np.float64)
         sizes[~good] = 1e6
         pick = sizes.argmin(axis=1)
         ar = np.arange(masks_bin.shape[0])
@@ -127,11 +139,12 @@ def smallest_good_mask_batch(
         if iou_threshold > 0:
             keep &= flat_iou > iou_threshold
         if stability_score_thresh > 0:
-            stab = calculate_stability_score(flat_logits, MASK_THRESH, STABILITY_OFFSET)
+            stab = (stability.reshape(-1) if stability is not None else
+                    calculate_stability_score(flat_logits, MASK_THRESH, STABILITY_OFFSET))
             keep &= stab >= stability_score_thresh
         kept = flat_logits[keep]
         result = {
-            "masks": kept > MASK_THRESH,
+            "masks": kept if kept.dtype == bool else kept > MASK_THRESH,
             "iou_preds": flat_iou[keep],
             "keypoints_ids": flat_kp[keep],
         }
@@ -225,6 +238,10 @@ def infer_edge_probs_coarse(
     return edges, probs, edges_coarse, probs_coarse
 
 
+def _stage(timer, name):
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
 def infer_masks(
     predict_fn,
     image: np.ndarray,
@@ -235,25 +252,47 @@ def infer_masks(
     rng: np.random.Generator | None = None,
     edge_probs_shape: tuple[int, int] | None = None,
     device: str | torch.device = "cuda",
+    on_round1=None,
+    timer=None,
 ):
     """Two-round mask generation.
 
-    ``predict_fn(image, keypoints_norm) -> (logits (B, 3, H, W), iou (B, 3))``.
-    Returns a dict with masks, keypoints (normalized row-col), coverage and
-    edges.  ``edge_probs_shape``: when set, edges are computed on masks
-    nearest-downsampled to this shape and bilinearly upsampled back."""
+    ``predict_fn(image, keypoints_norm) -> (logits (B, 3, H, W), iou (B, 3))``
+    (or, from a device predictor's statistics path, ``(masks, iou,
+    stability, areas)``).  A ``predict_fn.select_round`` with ``dispatch``
+    and ``finish`` (``process_frame.wire_mask_predictor``) takes the device
+    selection path instead: round 1's survivors stay packed on the device,
+    coverage for the active resampling is OR-reduced there, and the host
+    masks come over after round 2 is dispatched.  Both paths give the same
+    output.
+
+    Returns a dict with masks, keypoints (normalized row-col), coverage,
+    edges and each mask's provenance (``src_round`` 0/1 and ``src_idx``, its
+    row in that round's selection).  ``edge_probs_shape``: when set, edges
+    are computed on masks nearest-downsampled to this shape and bilinearly
+    upsampled back.  ``on_round1(masks)`` is called with round 1's
+    selection (a ``DeferredMasks`` on the device path) before round 2, so a
+    caller can start per-segment work early.  ``timer``: an optional
+    ``utils.timing.StageTimer`` for the sam_round1 / sam_round2 / sam_edges
+    stages."""
     rng = rng or np.random.default_rng(42)
     H, W = image.shape[:2]
     if keypoints is None:
         keypoints = (rng.random((num_pts, 2)) * 2 - 1).astype(np.float32)
 
     def run_round(kps):
-        logits, iou = predict_fn(image, kps)
+        out = predict_fn(image, kps)
+        stability = areas = None
+        if len(out) == 4:  # device statistics path
+            logits, iou, stability, areas = out
+        else:
+            logits, iou = out
         sel = smallest_good_mask_batch(
             np.asarray(logits), np.asarray(iou),
             iou_threshold=sam_params.iou_threshold,
             stability_score_thresh=sam_params.stability_threshold,
             select_smallest=sam_params.select_smallest,
+            stability=stability, areas=areas,
         )
         kps_f = kps[sel["keypoints_ids"]]
         if sam_params.nms:
@@ -268,35 +307,74 @@ def infer_masks(
             kps_f = kps_f[keep]
         return sel, kps_f
 
-    sel, kps_f = run_round(keypoints)
-    if len(sel["masks"]):
-        H, W = sel["masks"].shape[-2:]  # mask working resolution
-        coverage = sel["masks"].any(axis=0)
+    sr = getattr(predict_fn, "select_round", None)
+    if sr is not None and sam_params.select_smallest:
+        with _stage(timer, "sam_round1"):
+            h1 = sr.dispatch(image, keypoints, sam_params)
+            sel = sr.finish(h1, sam_params, defer_masks=True)
+            deferred = sel.pop("deferred")
+            cov_pre = sel.pop("coverage", None)
+            kps_f = keypoints[sel["keypoints_ids"]]
+        n1 = deferred.n_rows
+        if n1:
+            H, W = deferred.hs, deferred.ws  # mask working resolution
+            coverage = cov_pre if cov_pre is not None else deferred.coverage()
+        else:
+            coverage = np.zeros((H, W), bool)
+        if on_round1 is not None:
+            on_round1(deferred if n1 else np.zeros((0, H, W), bool))
+        sel2 = None
+        if num_pts_active > 0:
+            kps_active = active_sample_pos(coverage, num_pts_active, rng)
+            with _stage(timer, "sam_round2"):
+                h2 = sr.dispatch(image, kps_active, sam_params)
+                sel["masks"] = deferred.fetch()
+                sel2 = sr.finish(h2, sam_params)
+                kps2_f = kps_active[sel2["keypoints_ids"]]
+        else:
+            sel["masks"] = deferred.fetch()
     else:
-        coverage = np.zeros((H, W), bool)
+        with _stage(timer, "sam_round1"):
+            sel, kps_f = run_round(keypoints)
+        if len(sel["masks"]):
+            H, W = sel["masks"].shape[-2:]  # mask working resolution
+            coverage = sel["masks"].any(axis=0)
+        else:
+            coverage = np.zeros((H, W), bool)
+        n1 = len(sel["masks"])
+        if on_round1 is not None:
+            on_round1(sel["masks"])
+        sel2 = None
+        if num_pts_active > 0:
+            kps_active = active_sample_pos(coverage, num_pts_active, rng)
+            with _stage(timer, "sam_round2"):
+                sel2, kps2_f = run_round(kps_active)
 
+    sel["src_round"] = np.zeros(n1, np.int64)
+    sel["src_idx"] = np.arange(n1)
     num_added = 0
-    if num_pts_active > 0:
-        kps_active = active_sample_pos(coverage, num_pts_active, rng)
-        sel2, kps2_f = run_round(kps_active)
+    if sel2 is not None:
         num_added = len(kps2_f)
         sel = {
             "masks": np.concatenate([sel["masks"], sel2["masks"]], axis=0),
             "iou_preds": np.concatenate([sel["iou_preds"], sel2["iou_preds"]]),
             "boxes": np.concatenate([sel["boxes"], sel2["boxes"]], axis=0),
+            "src_round": np.concatenate([sel["src_round"], np.ones(num_added, np.int64)]),
+            "src_idx": np.concatenate([sel["src_idx"], np.arange(num_added)]),
         }
         kps_f = np.concatenate([kps_f, kps2_f], axis=0)
 
-    if not len(sel["masks"]):
-        edges = edges_coarse = np.zeros((H, W), np.float32)
-        edge_probs = edge_probs_coarse = np.ones((H, W), np.float32)
-    elif edge_probs_shape is None:
-        edges, edge_probs = infer_edge_probs(sel["masks"], device)
-        edges_coarse, edge_probs_coarse = edges, edge_probs
-    else:
-        edges, edge_probs, edges_coarse, edge_probs_coarse = infer_edge_probs_coarse(
-            sel["masks"], tuple(edge_probs_shape), device
-        )
+    with _stage(timer, "sam_edges"):
+        if not len(sel["masks"]):
+            edges = edges_coarse = np.zeros((H, W), np.float32)
+            edge_probs = edge_probs_coarse = np.ones((H, W), np.float32)
+        elif edge_probs_shape is None:
+            edges, edge_probs = infer_edge_probs(sel["masks"], device)
+            edges_coarse, edge_probs_coarse = edges, edge_probs
+        else:
+            edges, edge_probs, edges_coarse, edge_probs_coarse = infer_edge_probs_coarse(
+                sel["masks"], tuple(edge_probs_shape), device
+            )
 
     if sam_params.cut_masks_by_edges and len(sel["masks"]):
         valid = edge_probs > sam_params.edge_probs_threshold
@@ -316,6 +394,8 @@ def infer_masks(
         "masks": sel["masks"],
         "iou_preds": sel["iou_preds"],
         "keypoints": kps_f,
+        "src_round": sel["src_round"],
+        "src_idx": sel["src_idx"],
         "num_active": num_added,
         "coarse_coverage": coverage,
         "final_coverage": final_coverage,

@@ -1,25 +1,29 @@
 """Perception frontend: normals -> SAM masks -> BiNI integration -> keyframe.
 
 Port of ``super_primitive_tpu/frontend/process_frame.py``
-(``FrontProcessor.process_to_kf`` / ``process_to_supp_kf``, the
-non-overlapped branch).  Per keyframe:
+(``FrontProcessor.process_to_kf`` / ``process_to_supp_kf`` and
+``wire_mask_predictor``).  Per keyframe:
   1. normals from the injected normal model, NN-resized to the integration
      shape;
-  2. SAM mask generation at ``infer_resolution``, masks NN-resized to the
-     integration shape;
+  2. SAM mask generation at ``infer_resolution``; on the device selection
+     path round 1's survivors stay packed on the card and their BiNI solves
+     are launched before round 2;
   3. BiNI integration per segment on ``device``, each segment routed to
      the smallest :data:`CROP_BUCKETS` window its bounding box fits, else
      to the full field;
   4. image downsampled to keyframe size, depth NN-resized, validity
-     depth > 1e-7, keypoints snapped into masks, log taken in-mask.
+     depth > 1e-7, keypoints snapped into masks, log taken in-mask;
+  5. the depth-discontinuity split (``frontend/post_process.py``) when
+     ``frontend.check_for_depth_disc`` is set.
 
-Each segment's solve is independent of the batch it is solved in, so this
-one-batch-per-bucket schedule gives the same result as the JAX package's
-two-round overlapped schedule.
+Each segment's solve is independent of the batch it is solved in, so the
+port solves each round's segments without the JAX package's power-of-two
+padding and gets the same result.
 
 Models are injected as callables:
   normals_fn(image_hwc01) -> (normals (H, W, 3), kappa (H, W, 1))
   mask_predict_fn(image_hwc_uint8, keypoints_norm) -> (logits (B,3,H,W), iou)
+or, for the device selection path, ``wire_mask_predictor(predictor)``.
 
 The resizes are numpy replacements of the OpenCV calls the JAX package
 makes (``cv2.INTER_NEAREST`` and ``cv2.INTER_LINEAR``); the tests hold them
@@ -28,6 +32,7 @@ against OpenCV.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -42,6 +47,7 @@ from ..integrate.bini import (
 )
 from ..keyframe import put_keypoints_back
 from .mask_generation import infer_masks
+from .post_process import split_disconnected_segments
 
 # Crop-size buckets for the per-segment BiNI solve, smallest first: each
 # segment routes to the smallest window its bbox fits (else the full field).
@@ -131,7 +137,11 @@ def scale_K(K: np.ndarray, scale_h: float, scale_w: float) -> np.ndarray:
 
 
 class FrontProcessor:
-    """The keyframe frontend on ``device`` (default the card)."""
+    """The keyframe frontend on ``device`` (default the card).
+
+    ``timer``: an optional ``utils.timing.StageTimer``; when set, the
+    keyframe stages (normals, sam_masks and its rounds, bini, host_pack,
+    split) accumulate in it."""
 
     def __init__(
         self,
@@ -146,14 +156,13 @@ class FrontProcessor:
         self.mask_predict_fn = mask_predict_fn
         self.rng = rng or np.random.default_rng(42)
         self.device = torch.device(device)
+        self.timer = None
+
+    def _stage(self, name):
+        return self.timer.stage(name) if self.timer else contextlib.nullcontext()
 
     def process_to_kf(self, image, K, keypoints=None) -> dict:
         fc = self.config.frontend
-        if fc.check_for_depth_disc:
-            raise NotImplementedError(
-                "the depth-discontinuity split is not ported yet (ROADMAP.md, "
-                "queue 1, slice 2); set frontend.check_for_depth_disc: false"
-            )
         image = np.asarray(image)
         if image.dtype != np.uint8:
             image = (np.clip(image, 0, 1) * 255).astype(np.uint8)
@@ -163,46 +172,80 @@ class FrontProcessor:
 
         # 1. normals, brought to the integration shape
         img01 = image.astype(np.float32) / 255.0
-        normals, _ = self.normals_fn(img01)
-        normals = normals.cpu().numpy() if torch.is_tensor(normals) else np.asarray(normals)
-        if normals.shape[:2] != (Hg, Wg):
-            normals = nn_resize(normals, (Hg, Wg))
+        with self._stage("normals"):
+            normals, _ = self.normals_fn(img01)
+            normals = normals.cpu().numpy() if torch.is_tensor(normals) else np.asarray(normals)
+            if normals.shape[:2] != (Hg, Wg):
+                normals = nn_resize(normals, (Hg, Wg))
+            normals_t = torch.from_numpy(np.ascontiguousarray(normals, np.float32)).to(self.device)
+        K_t = torch.from_numpy(np.asarray(K_geom, np.float32)).to(self.device)
+        bini_cfg = BiniConfig(cg_max_iter=fc.cg_max_iter, cg_tol=fc.cg_tol)
 
-        # 2. SAM masks at infer_resolution
-        sam_hw = self.config.sam_params.infer_resolution
+        # 2. SAM masks at infer_resolution.  When the mask contents are
+        # final after each round (no cut by edges), round 1's segments start
+        # integrating on the device before round 2 runs.
+        sam_params = self.config.sam_params
+        sam_hw = sam_params.infer_resolution
         sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
-        gen = infer_masks(
-            self.mask_predict_fn, sam_img, self.config.sam_params,
-            keypoints=keypoints,
-            num_pts=fc.num_pts, num_pts_active=fc.num_pts_active,
-            rng=self.rng, edge_probs_shape=(Hg, Wg), device=self.device,
-        )
+        overlap = not sam_params.cut_masks_by_edges
+        r1_handle = []
+
+        def on_round1(masks_r1):
+            r1_handle.append(self._dispatch_integration(normals_t, masks_r1, K_t, bini_cfg))
+
+        with self._stage("sam_masks"):
+            gen = infer_masks(
+                self.mask_predict_fn, sam_img, sam_params,
+                keypoints=keypoints,
+                num_pts=fc.num_pts, num_pts_active=fc.num_pts_active,
+                rng=self.rng, edge_probs_shape=(Hg, Wg), device=self.device,
+                on_round1=on_round1 if overlap else None, timer=self.timer,
+            )
         masks = gen["masks"]
         if masks.shape[0] == 0:
             raise RuntimeError("frontend produced no masks")
 
         # 3. BiNI integration per segment at geometry resolution
-        bini_cfg = BiniConfig(cg_max_iter=fc.cg_max_iter, cg_tol=fc.cg_tol)
-        masks_coarse = nn_resize(masks, (Hg, Wg)).astype(bool)
-        depth_perseg = self.integrate(normals, masks_coarse, K_geom, bini_cfg)
+        with self._stage("bini"):
+            if overlap:
+                depth_perseg = np.zeros((masks.shape[0], Hg, Wg), np.float32)
+                is_r1 = gen["src_round"] == 0
+                if r1_handle and r1_handle[0] is not None and is_r1.any():
+                    d1 = self._composite_integration(r1_handle[0])
+                    depth_perseg[is_r1] = d1[gen["src_idx"][is_r1]]
+                if (~is_r1).any():
+                    h2 = self._dispatch_integration(normals_t, masks[~is_r1], K_t, bini_cfg)
+                    depth_perseg[~is_r1] = self._composite_integration(h2)
+            else:
+                depth_perseg = self.integrate(normals, masks, K_geom, bini_cfg)
 
         # 4. downsample image to KF size; depth NN-resized; log in-mask
-        s = 2 ** fc.downsample_pow
-        H_kf, W_kf = H // s, W // s
-        K_kf = scale_K(K, H_kf / H, W_kf / W)
-        image_kf = linear_resize(img01, (H_kf, W_kf)).astype(np.float32)
-        if fc.include_normals:
-            n_kf = nn_resize(normals, (H_kf, W_kf)).astype(np.float32)
-            image_kf = np.concatenate([image_kf, n_kf], axis=-1)
+        with self._stage("host_pack"):
+            s = 2 ** fc.downsample_pow
+            H_kf, W_kf = H // s, W // s
+            K_kf = scale_K(K, H_kf / H, W_kf / W)
+            image_kf = linear_resize(img01, (H_kf, W_kf)).astype(np.float32)
+            if fc.include_normals:
+                n_kf = nn_resize(normals, (H_kf, W_kf)).astype(np.float32)
+                image_kf = np.concatenate([image_kf, n_kf], axis=-1)
 
-        depth_kf = nn_resize(depth_perseg, (H_kf, W_kf))
-        regions = depth_kf > 1e-7
-        kps, regions, depth_kf = put_keypoints_back(gen["keypoints"], regions, depth_kf)
-        logdepth = np.zeros(depth_kf.shape, np.float32)
-        np.log(np.maximum(depth_kf, 1e-30), out=logdepth, where=regions)
+            depth_kf = nn_resize(depth_perseg, (H_kf, W_kf))
+            regions = depth_kf > 1e-7
+            kps, regions, depth_kf = put_keypoints_back(gen["keypoints"], regions, depth_kf)
+            logdepth = np.zeros(depth_kf.shape, np.float32)
+            np.log(np.maximum(depth_kf, 1e-30), out=logdepth, where=regions)
 
-        dims = np.asarray([H_kf, W_kf], np.float32)
-        kp_rc = np.round(0.5 * (dims - 1) * (kps + 1)).astype(np.int64)
+            dims = np.asarray([H_kf, W_kf], np.float32)
+            kp_rc = np.round(0.5 * (dims - 1) * (kps + 1)).astype(np.int64)
+
+        # 5. depth-discontinuity split
+        if fc.check_for_depth_disc:
+            with self._stage("split"):
+                dp = fc.depth_disc_params
+                regions, logdepth, kp_rc = split_disconnected_segments(
+                    regions, logdepth, kp_rc, dp.filter_size, dp.depth_threshold,
+                    dp.area_keep_ratio, rng=self.rng, device=self.device, timer=self.timer,
+                )
         return {
             "image": image_kf,
             "K": K_kf.astype(np.float32),
@@ -213,48 +256,89 @@ class FrontProcessor:
             "edges": gen["edges"],
         }
 
-    def integrate(
-        self, normals: np.ndarray, masks: np.ndarray, K_geom: np.ndarray,
-        bini_cfg: BiniConfig, crop: int | None = None,
-    ) -> np.ndarray:
-        """Per-segment BiNI on ``self.device`` with crop/full routing; returns
-        depth fields (N, H, W) on the host: exp of the log-depth inside the
-        mask, zero outside.  ``crop`` forces a single bucket."""
-        crops = CROP_BUCKETS if crop is None else (crop,)
-        masks = np.asarray(masks, bool)
-        N, H, W = masks.shape
-        hs, ws = segment_bbox_sizes(masks)
-        ext = np.maximum(hs, ws)
-        assigned = np.zeros(N, bool)
-        normals_t = torch.from_numpy(np.ascontiguousarray(normals, np.float32)).to(self.device)
-        K_t = torch.from_numpy(np.asarray(K_geom, np.float32)).to(self.device)
-        masks_t = torch.from_numpy(masks).to(self.device)
-        depth = np.zeros((N, H, W), np.float32)
+    def _dispatch_integration(self, normals_t, masks, K_t, bini_cfg,
+                              crop: int | None = None) -> Optional[dict]:
+        """Launch per-segment BiNI on ``self.device`` for host masks (M, h, w)
+        or a ``DeferredMasks`` (masks still packed on the device), each
+        segment routed to the smallest :data:`CROP_BUCKETS` window its
+        integration-shape bbox fits, else to the full field; ``crop`` forces
+        one bucket.  Returns a handle for :meth:`_composite_integration`
+        (None for no masks); nothing waits for the device here."""
+        Hg, Wg = normals_t.shape[:2]
+        deferred = getattr(masks, "device_masks_resized", None) is not None
+        if deferred and (masks.n_rows == 0 or Hg < masks.hs or Wg < masks.ws):
+            # the boxes give exact resized bboxes only when resizing up
+            masks, deferred = masks.fetch(), False
+        if deferred:
+            hs, ws = masks.resized_bbox_sizes(Hg, Wg)
+            handle = {"deferred": masks}
 
-        for c in sorted(crops):
+            def device_masks(idx):
+                return masks.device_masks_resized(idx, Hg, Wg)
+        else:
+            if masks.shape[0] == 0:
+                return None
+            mc = nn_resize(np.asarray(masks, bool), (Hg, Wg)).astype(bool)
+            hs, ws = segment_bbox_sizes(mc)
+            mc_t = torch.from_numpy(mc).to(self.device)
+            handle = {"masks": mc}
+
+            def device_masks(idx):
+                return mc_t[torch.from_numpy(idx).to(self.device)]
+
+        ext = np.maximum(hs, ws)
+        assigned = np.zeros(ext.shape[0], bool)
+        handle["geo"] = (Hg, Wg)
+        handle["buckets"] = []
+        for c in sorted(CROP_BUCKETS if crop is None else (crop,)):
             sel = (~assigned) & (ext <= c)
-            if not sel.any():
-                continue
-            idx = np.nonzero(sel)[0]
-            zt_c, r0, c0 = integrate_normals_cropped(
-                normals_t, masks_t[torch.from_numpy(idx).to(self.device)], K_t,
-                bini_cfg, c, return_crops=True,
-            )
-            zt_c, r0, c0 = zt_c.cpu().numpy(), r0.cpu().numpy(), c0.cpu().numpy()
+            if sel.any():
+                idx = np.nonzero(sel)[0]
+                out = integrate_normals_cropped(normals_t, device_masks(idx), K_t, bini_cfg,
+                                                c, return_crops=True)
+                handle["buckets"].append((idx, out))
+                assigned |= sel
+        if (~assigned).any():
+            idx = np.nonzero(~assigned)[0]
+            handle["full"] = (idx, integrate_normals(normals_t, device_masks(idx), K_t, bini_cfg))
+        return handle
+
+    def _composite_integration(self, handle: dict) -> np.ndarray:
+        """Per-segment depth fields (M, Hg, Wg) on the host from a
+        :meth:`_dispatch_integration` handle: exp of the log-depth inside
+        the mask, zero outside."""
+        masks = handle.get("masks")
+        if masks is None:
+            masks = nn_resize(handle["deferred"].fetch(), handle["geo"]).astype(bool)
+        depth = np.zeros(masks.shape, np.float32)
+        for idx, out in handle["buckets"]:
+            zt_c, r0, c0 = (t.cpu().numpy() for t in out)
             ch, cw = zt_c.shape[1:]
             for j, i in enumerate(idx):
                 rr, cc = int(r0[j]), int(c0[j])
                 win = masks[i, rr : rr + ch, cc : cc + cw]
                 depth[i, rr : rr + ch, cc : cc + cw] = np.exp(zt_c[j]) * win
-            assigned |= sel
-        if (~assigned).any():
-            idx = np.nonzero(~assigned)[0]
-            zt = integrate_normals(
-                normals_t, masks_t[torch.from_numpy(idx).to(self.device)], K_t, bini_cfg
-            ).cpu().numpy()
+        if "full" in handle:
+            idx, zt = handle["full"]
+            zt = zt.cpu().numpy()
             for j, i in enumerate(idx):
                 depth[i] = np.exp(zt[j]) * masks[i]
         return depth
+
+    def integrate(
+        self, normals: np.ndarray, masks: np.ndarray, K_geom: np.ndarray,
+        bini_cfg: BiniConfig, crop: int | None = None,
+    ) -> np.ndarray:
+        """Per-segment BiNI on ``self.device`` with crop/full routing for host
+        masks at the integration shape; returns depth fields (N, H, W) on the
+        host: exp of the log-depth inside the mask, zero outside.  ``crop``
+        forces a single bucket."""
+        normals_t = torch.from_numpy(np.ascontiguousarray(normals, np.float32)).to(self.device)
+        K_t = torch.from_numpy(np.asarray(K_geom, np.float32)).to(self.device)
+        handle = self._dispatch_integration(normals_t, masks, K_t, bini_cfg, crop)
+        if handle is None:
+            return np.zeros((0,) + normals.shape[:2], np.float32)
+        return self._composite_integration(handle)
 
     def process_to_supp_kf(self, image, K) -> dict:
         image = np.asarray(image)
@@ -273,3 +357,58 @@ class FrontProcessor:
             "image": img,
             "K": scale_K(K, H_kf / H, W_kf / W).astype(np.float32),
         }
+
+
+def wire_mask_predictor(predictor):
+    """mask_generation-protocol wrappers around a prompt-round predictor
+    (``nets/sam/predictor.PromptRounds``, e.g. ``fakes.DeviceFakeSAM``).
+
+    Returns ``mask_predict_fn`` (the statistics path) with ``.select_round``
+    attached: one selection round with NMS on the device, plus its two-phase
+    ``dispatch`` / ``finish`` protocol, the contract ``infer_masks`` keys on.
+    """
+
+    def _to_input_xy(image_uint8, kps_norm):
+        predictor.set_image(image_uint8)
+        h2, w2 = predictor._input_hw
+        # keypoints normalized (row, col) -> input-frame (x, y) pixels
+        dims = np.asarray([h2, w2], np.float32)
+        rc = 0.5 * (dims - 1) * (np.asarray(kps_norm) + 1)
+        return np.round(rc[:, ::-1])
+
+    def mask_predict_fn(image_uint8, kps_norm):
+        return predictor.predict_points_with_stats(_to_input_xy(image_uint8, kps_norm),
+                                                   out_size=256)
+
+    def select_round(image_uint8, kps_norm, sam_params):
+        return predictor.predict_points_select(
+            _to_input_xy(image_uint8, kps_norm),
+            iou_threshold=sam_params.iou_threshold,
+            stability_threshold=sam_params.stability_threshold,
+            nms_enabled=sam_params.nms,
+            box_nms_thresh=sam_params.box_nms_thresh,
+            filter_by_box_size=sam_params.filter_by_box_size,
+            out_size=256,
+        )
+
+    def _select_dispatch(image_uint8, kps_norm, sam_params):
+        return predictor.select_dispatch(
+            _to_input_xy(image_uint8, kps_norm),
+            iou_threshold=sam_params.iou_threshold,
+            stability_threshold=sam_params.stability_threshold,
+            out_size=256,
+        )
+
+    def _select_finish(handle, sam_params, defer_masks=False):
+        return predictor.select_finish(
+            handle,
+            nms_enabled=sam_params.nms,
+            box_nms_thresh=sam_params.box_nms_thresh,
+            filter_by_box_size=sam_params.filter_by_box_size,
+            defer_masks=defer_masks,
+        )
+
+    select_round.dispatch = _select_dispatch
+    select_round.finish = _select_finish
+    mask_predict_fn.select_round = select_round
+    return mask_predict_fn

@@ -70,8 +70,9 @@ def bilinear_sample_packed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`bilinear_sample` on a :func:`pack_bilinear_taps` image: one
     row gather instead of four.  Agrees with the unpacked sampler exactly on
-    ``valid`` points; callers mask the rest."""
-    H, W, C4 = packed.shape
+    ``valid`` points; callers mask the rest.  A stack of B packed images
+    (B, H, W, 4C) samples each with its own coords (B, N, 2)."""
+    H, W, C4 = packed.shape[-3:]
     C = C4 // 4
     x = (coords_norm[..., 0] + 1.0) * 0.5 * (W - 1)
     y = (coords_norm[..., 1] + 1.0) * 0.5 * (H - 1)
@@ -83,7 +84,10 @@ def bilinear_sample_packed(
     wy = (y - y0)[..., None].to(packed.dtype)
     x0i = x0.to(torch.int64).clamp(0, W - 2)
     y0i = y0.to(torch.int64).clamp(0, H - 2)
-    taps = packed.reshape(H * W, C4)[y0i * W + x0i]
+    idx = y0i * W + x0i
+    if packed.dim() == 4:
+        idx = idx + torch.arange(packed.shape[0], device=idx.device)[:, None] * (H * W)
+    taps = packed.reshape(-1, C4)[idx]
     samples = _lerp(
         taps[..., 0 * C : 1 * C], taps[..., 1 * C : 2 * C],
         taps[..., 2 * C : 3 * C], taps[..., 3 * C : 4 * C], wx, wy,

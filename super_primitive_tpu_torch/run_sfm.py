@@ -1,16 +1,23 @@
-"""Two-frame SfM runner of the PyTorch port.
+"""SfM and odometry runner of the PyTorch port.
 
-Mirrors the two-frame path of the repository's ``run_sfm.py``:
+Mirrors the repository's ``run_sfm.py``:
 
     python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml --fake-frontend
     python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml --stub-frontend
+    python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml --fake-frontend --odom \
+        [--max-frames N]
 
 It runs on the card (``--device cuda``, the default) and raises if there is
 none; ``--device cpu`` runs the same code on the CPU with the kernels' plain
 versions.  The ported datasets are the synthetic planes scenes
 (``dataset.type: planes``, ``dataset.path`` naming the trajectory,
-``linear`` or ``orbit``, at ``frontend.normals.network_dim``).  The result
-is written to ``two_frame_result.npz`` under the config's ``save_path``.
+``linear`` or ``orbit``, at ``frontend.normals.network_dim``).  Two-frame
+SfM writes ``two_frame_result.npz`` under the config's ``save_path``.
+``--odom`` runs monocular odometry over ``--max-frames`` frames (default 20)
+and writes ``converted_tum_traj.txt`` and ``converted_gt_tum_traj.txt``
+there, and prints the Sim(3) ATE of the keyframe trajectory.  With
+``--fake-frontend`` odometry takes the device SAM selection
+(``DeviceFakeSAM``); two-frame SfM keeps the host FakeSAM.
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ def require_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def load_dataset(config):
-    """The port's datasets: ``planes`` (a synthetic PlanesSequence)."""
+def load_dataset(config, n_frames: int | None = None):
+    """The port's datasets: ``planes`` (a synthetic PlanesSequence of
+    ``n_frames`` frames, by default enough for source and target)."""
     ds = config.dataset
     if ds.type != "planes":
         raise NotImplementedError(
@@ -51,12 +59,12 @@ def load_dataset(config):
     from .data.synthetic import PlanesSequence
 
     H, W = config.frontend.normals.network_dim
-    return PlanesSequence(
-        n_frames=max(ds.source_id, ds.target_id) + 1, H=H, W=W, path=ds.path or "linear",
-    )
+    if n_frames is None:
+        n_frames = max(ds.source_id, ds.target_id) + 1
+    return PlanesSequence(n_frames=n_frames, H=H, W=W, path=ds.path or "linear")
 
 
-def build_frontend(args, config, device):
+def build_frontend(args, config, device, device_sam: bool = False):
     if args.stub_frontend:
         from .frontend.stub import GridSegmentFrontend
 
@@ -67,7 +75,8 @@ def build_frontend(args, config, device):
     if args.fake_frontend:
         from .frontend.fakes import StructuredFakeFrontend
 
-        return StructuredFakeFrontend(config, n_cells=64, device=device)
+        return StructuredFakeFrontend(config, n_cells=64, device=device,
+                                      device_sam=device_sam)
     raise NotImplementedError(
         "the SAM ViT-H / EfficientNet-B5 frontend is not ported yet (ROADMAP.md, "
         "queue 1, item 8); use --fake-frontend or --stub-frontend"
@@ -165,11 +174,44 @@ def run_two_frame(config, frontend, dataset, device="cuda",
     return result
 
 
+def run_odometry(config, frontend, dataset, max_frames=None, device="cuda") -> dict:
+    """Monocular odometry over ``dataset``; writes the TUM trajectories and
+    returns the Sim(3) ATE of the keyframe trajectory (None with fewer than
+    three ground-truth poses) beside the Odometry object."""
+    from .eval.trajectory import ate_rmse
+    from .odometry.io import export_tum_trajectory
+    from .odometry.odometry import Odometry
+
+    odom = Odometry(config, frontend, dataset, device=device)
+    traj = odom.run(max_frames=max_frames)
+    out = config.save_path
+    export_tum_trajectory(traj, odom.frame_timestamps,
+                          os.path.join(out, "converted_tum_traj.txt"))
+    gt_traj = {}
+    for ts in traj:
+        T = dataset[int(ts)].get("T")
+        if T is not None:
+            gt_traj[ts] = T
+    ate = None
+    if len(gt_traj) >= 3:
+        export_tum_trajectory(gt_traj, odom.frame_timestamps,
+                              os.path.join(out, "converted_gt_tum_traj.txt"))
+        ate = ate_rmse(gt_traj, traj, align_scale=True)
+        print(f"ATE RMSE (Sim3): {ate['rmse']:.4f} m over {ate['n']} KFs "
+              f"(scale {ate['scale']:.3f})")
+    else:
+        print(f"no ATE: {len(gt_traj)} keyframes with ground truth, the Sim(3) "
+              "alignment needs 3")
+    print(f"artifacts in {out}")
+    return {"odom": odom, "ate": ate}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", required=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--odom", action="store_true")
+    ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--sam-ckpt", default=None)
     ap.add_argument("--nnet-ckpt", default=None)
     ap.add_argument("--stub-frontend", action="store_true")
@@ -178,10 +220,6 @@ def main(argv=None):
     ap.add_argument("--fake-frontend", action="store_true",
                     help="the structured fake SAM/NNET through the real frontend")
     args = ap.parse_args(argv)
-    if args.odom:
-        raise NotImplementedError(
-            "monocular odometry is not ported yet (ROADMAP.md, queue 1, item 3)"
-        )
     if args.sam_ckpt or args.nnet_ckpt:
         raise NotImplementedError(
             "the SAM / NNET checkpoints are not ported yet (ROADMAP.md, queue 1, item 8)"
@@ -189,6 +227,11 @@ def main(argv=None):
 
     device = require_device(args.device)
     config = load_config(args.config)
+    if args.odom:
+        dataset = load_dataset(config, n_frames=args.max_frames or 20)
+        frontend = build_frontend(args, config, device, device_sam=True)
+        run_odometry(config, frontend, dataset, args.max_frames, device)
+        return
     dataset = load_dataset(config)
     frontend = build_frontend(args, config, device)
     r = run_two_frame(config, frontend, dataset, device)

@@ -1,15 +1,21 @@
-"""Retraction Adam in accumulate mode, as the two-frame solve uses it.
+"""Retraction Adam, in accumulate mode and in fold mode.
 
-Port of ``super_primitive_tpu/solve/retraction_adam.py`` (``fold=False``):
-the parameters are per-frame SE(3) tangent vectors ``xi`` around fixed base
-poses (pose = base @ exp(xi)) and per-segment scalar log-depths, stepped by
-``torch.optim.Adam`` with per-group learning rates.  optax's adam, which the
-JAX package uses, has the same update law (b1=0.9, b2=0.999, eps=1e-8
-outside the sqrt, bias correction); the two round differently in the last
-bits.
+Port of ``super_primitive_tpu/solve/retraction_adam.py``.
 
-The fold mode of tracking and mapping and the affine brightness group wait
-for the odometry slice.
+- Accumulate mode (two-frame SfM): the parameters are per-frame SE(3)
+  tangent vectors ``xi`` around fixed base poses (pose = base @ exp(xi))
+  and per-segment scalar log-depths, stepped by ``torch.optim.Adam`` with
+  per-group learning rates.
+- Fold mode (odometry tracking and mapping): every step the pose update
+  folds into the pose (pose <- retract(pose, -lr * direction)) and the
+  tangent restarts at zero while its Adam moments persist.  The direction
+  is :class:`ScaleByAdam`'s, the counterpart of ``optax.scale_by_adam``
+  that the JAX package's tracker and mapper use, with the learning rates
+  (pose, log-depth, affine brightness) applied by the caller.
+
+optax's adam and ``torch.optim.Adam`` share the update law (b1=0.9,
+b2=0.999, eps=1e-8 outside the sqrt, bias correction); the two round
+differently in the last bits.
 """
 
 from __future__ import annotations
@@ -72,3 +78,27 @@ def run_adam(
         loss.backward()
         optimizer.step()
     return losses
+
+
+class ScaleByAdam:
+    """The Adam direction m_hat / (sqrt(v_hat) + eps) of a list of tensors,
+    without a learning rate (``optax.scale_by_adam``).  Moments live on the
+    tensors' device and persist across :meth:`direction` calls."""
+
+    def __init__(self, like: list[torch.Tensor], b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(t) for t in like]
+        self.nu = [torch.zeros_like(t) for t in like]
+        self.count = 0
+
+    def direction(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        self.count += 1
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        out = []
+        for mu, nu, g in zip(self.mu, self.nu, grads):
+            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+            nu.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
+            out.append((mu / c1) / (torch.sqrt(nu / c2) + self.eps))
+        return out

@@ -3,10 +3,10 @@
 - The numpy resizes that replace OpenCV equal ``cv2.resize``: exactly for
   nearest and for uint8 bilinear, to 1e-6 for float32 bilinear.
 - Mask generation pieces equal the JAX package's (edge maps to 1e-6).
-- ``FrontProcessor`` on the structured fakes at 96x128: the port's
-  one-batch-per-bucket BiNI schedule against the JAX package's overlapped
-  two-round schedule gives identical regions and keypoints and log-depths
-  within 1e-3.
+- ``FrontProcessor`` on the structured fakes at 96x128: the port's BiNI
+  schedule (each SAM round's segments unpadded, one batch per crop bucket)
+  against the JAX package's padded batches gives identical regions and
+  keypoints and log-depths within 1e-3.
 """
 
 import cv2
@@ -105,13 +105,13 @@ class TestMaskGeneration:
             np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
 
 
-def frontend_cfg(load_config, disc=False):
+def frontend_cfg(load_config):
     return load_config({
         "save_path": "unused",
         "frontend": {
             "downsample_pow": 0, "num_pts": 48, "num_pts_active": 16,
             "normals": {"integration_shape": [48, 64], "network_dim": [96, 128]},
-            "cg_max_iter": 150, "cg_tol": 1e-3, "check_for_depth_disc": disc,
+            "cg_max_iter": 150, "cg_tol": 1e-3, "check_for_depth_disc": False,
         },
         "sam_params": {"infer_resolution": [96, 128]},
     })
@@ -162,11 +162,6 @@ class TestFrontProcessor:
         routed = fe.integrate(normals, masks, K, cfg)
         full = fe.integrate(normals, masks, K, cfg, crop=10**6)
         np.testing.assert_allclose(np.log(routed[masks]), np.log(full[masks]), atol=1e-3)
-
-    def test_depth_split_not_ported(self):
-        fe = TFrontend(frontend_cfg(tload_config, disc=True), n_cells=8, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fe.process_to_kf(np.zeros((96, 128, 3), np.float32), np.eye(3))
 
 
 class TestDataAndStub:

@@ -33,7 +33,8 @@ def test_no_forbidden_imports(path):
 
 def test_kernel_sources_are_packaged():
     csrc = REPO / "super_primitive_tpu_torch" / "ops" / "csrc"
-    assert {p.name for p in csrc.iterdir()} >= {"bini_apply.cu", "bini_cg.cu", "bini_stencil.cuh"}
+    assert {p.name for p in csrc.iterdir()} >= {"bini_apply.cu", "bini_cg.cu", "bini_stencil.cuh",
+                                                "phase_counts.cu"}
     text = (REPO / "pyproject.toml").read_text()
     assert '"csrc/*.cu"' in text and '"csrc/*.cuh"' in text
 
