@@ -8,8 +8,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. the card's name and power limit; build the CUDA kernels with nvcc
      (one process per source, all at once);
   2. K1 (``bini_apply``) against its plain PyTorch version at three shapes;
-  3. K2 (``bini_cg``) against its plain version at the crop buckets and the
-     full 240x320 field;
+  3. K2 (``bini_cg``) against its plain version at the VO path's crop
+     buckets and N (2x32², 34x64², 14x128²), at 8x240x320, and on a q with
+     non-zero borders (the ring halo) at 2x32² (one CTA), 3x128² and
+     2x240x320 (16 CTAs); each with its cluster plan, the longest
+     segment's iterations and µs per iteration;
   3b. K3 (``phase_counts``) against its plain version at (3, 128, 128) and
      at the select rounds' (384 | 192, 256, 256), every count exact;
   4. BiNI on a 480x640 normal field with 8 masks, which takes the
@@ -59,6 +62,11 @@ K2_FLOPS_PER_PIXEL_ITER = 33
 K3_FLOPS_ROW_INTERP = 3
 K3_FLOPS_PER_UP_PIXEL = 6
 VO_FRAMES = 12
+# phase 3's K2 shapes: the VO path's largest call at each crop bucket (its
+# first keyframe, round 1) and the full 240x320 integration field
+K2_CHECK_SHAPES = [(2, 32, 32), (34, 64, 64), (14, 128, 128), (8, 240, 320)]
+# the ring-halo shapes: one CTA, 8 CTAs and 16 CTAs a segment
+K2_RING_SHAPES = [(2, 32, 32), (3, 128, 128), (2, 240, 320)]
 
 
 def fail(msg: str):
@@ -168,7 +176,26 @@ def masked_residual(torch, stencil, x, b, maskf, qs):
     return torch.sqrt(torch.sum(((b - ap * maskf) * maskf) ** 2, dim=(-2, -1)))
 
 
-def k2_row(torch, stencil, b, x0, maskf, diag, *rest) -> dict:
+def ring_fields(torch, N, H, W, seed):
+    """K2 inputs whose q is positive everywhere, borders included, so the
+    stencil's wrap-around terms count (row 0's upper neighbour is row H-1,
+    held by the last CTA of a cluster); diag is A's diagonal."""
+    g = torch.Generator().manual_seed(seed)
+    qs = [torch.rand(N, H, W, generator=g) + 0.1 for _ in range(4)]
+    up, um, vp, vm = qs
+
+    def roll(x, dr, dc):
+        return torch.roll(x, (dr, dc), dims=(-2, -1))
+
+    diag = (up + roll(up, 0, 1) + um + roll(um, 0, -1)
+            + vp + roll(vp, 1, 0) + vm + roll(vm, -1, 0))
+    maskf = (torch.rand(N, H, W, generator=g) > 0.2).float()
+    b = torch.randn(N, H, W, generator=g) * maskf
+    x0 = 0.01 * torch.randn(N, H, W, generator=g) * maskf
+    return [t.contiguous().cuda() for t in (b, x0, maskf, diag, *qs)]
+
+
+def k2_row(torch, stencil, b, x0, maskf, diag, *rest, label="") -> dict:
     """K2 against bini_cg_reference on one input: the solution within
     1e-4 * max|x| and each segment's residual within 1.5x of the plain one;
     kernel and plain times; the bound (8 fields read, x written; 33 flops a
@@ -176,6 +203,7 @@ def k2_row(torch, stencil, b, x0, maskf, diag, *rest) -> dict:
     qs, (max_iter, tol) = rest[:4], rest[4:]
     args = (b, x0, maskf, diag, *qs, max_iter, tol)
     N, H, W = b.shape
+    plan = stencil.cg_plan(H, W)
     x_k, it_k = stencil.bini_cg(*args)
     x_r, it_r = stencil.bini_cg_reference(*args)
     err = float((x_k - x_r).abs().max())
@@ -185,19 +213,24 @@ def k2_row(torch, stencil, b, x0, maskf, diag, *rest) -> dict:
     res_ratio = float((res_k / res_r.clamp(min=1e-30)).max())
     ms = time_ms(torch, lambda: stencil.bini_cg(*args), reps=5)
     plain_ms = host_ms(torch, lambda: stencil.bini_cg_reference(*args))
-    iters = int(it_k.sum())
+    iters, max_it = int(it_k.sum()), int(it_k.max())
+    same = [bool(torch.equal(a, c)) for a, c in zip(x_k, x_r)]
+    iters_agree = all(int(i) == int(j) for i, j, s in zip(it_k, it_r, same) if s)
+    us_per_iter = ms * 1e3 / max(max_it, 1)
     nbytes, flops = 9 * N * H * W * 4, K2_FLOPS_PER_PIXEL_ITER * iters * H * W
     b_ms, b_by = bound_ms(nbytes, flops)
-    print(f"K2 {N}x{H}x{W}: max abs err {err:.2e} (max|x| {scale:.2e}), "
-          f"residual ratio {res_ratio:.3f}, iters {iters} (plain "
-          f"{int(it_r.sum())}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
-    if not (err <= 1e-4 * scale and res_ratio <= 1.5):
-        fail(f"K2 disagrees with its plain version at {N}x{H}x{W}")
-    return {"shape": [N, H, W], "max_abs_err": err, "max_abs_x": scale,
+    print(f"K2 {N}x{H}x{W}{' ' + label if label else ''} plan (cluster, threads, smem) "
+          f"{tuple(plan)}: max abs err {err:.2e} (max|x| {scale:.2e}), residual ratio "
+          f"{res_ratio:.3f}, iters {iters} (plain {int(it_r.sum())}), longest segment "
+          f"{max_it}; kernel {ms:.3f} ms ({us_per_iter:.2f} us per iteration), plain "
+          f"{plain_ms:.1f} ms, bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+    if not (err <= 1e-4 * scale and res_ratio <= 1.5 and iters_agree):
+        fail(f"K2 disagrees with its plain version at {N}x{H}x{W} {label}")
+    return {"shape": [N, H, W], "plan": list(plan), "max_abs_err": err, "max_abs_x": scale,
             "residual_ratio": res_ratio, "iters": iters, "plain_iters": int(it_r.sum()),
+            "max_iters": max_it, "us_per_iter": us_per_iter, "exact_segments": sum(same),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, **({"case": label} if label else {})}
 
 
 def check_k1(torch, bini, stencil):
@@ -211,12 +244,15 @@ def check_k1(torch, bini, stencil):
 
 def check_k2(torch, bini, stencil):
     """Phase 3: K2 against its plain version (max_iter 1000, tol 1e-3) at
-    the crop buckets and the full field."""
+    the VO path's crop buckets, the full field and the ring-halo case."""
     rows = []
-    for N, H, W in [(32, 32, 32), (32, 64, 64), (32, 128, 128), (8, 240, 320)]:
+    for N, H, W in K2_CHECK_SHAPES:
         qs, p, maskf, b, diag = bini_fields(torch, bini, N, H, W, seed=7 * H + N)
         x0 = 0.01 * p  # a warm start, as BiNI's outer iterations give K2
         rows.append(k2_row(torch, stencil, b, x0, maskf, diag, *qs, 1000, 1e-3))
+    for N, H, W in K2_RING_SHAPES:
+        rows.append(k2_row(torch, stencil, *ring_fields(torch, N, H, W, seed=11), 1000, 1e-3,
+                           label="ring q"))
     return rows
 
 
@@ -289,7 +325,7 @@ def check_bini_480(torch, bini, stencil):
                        + (u[None] - seeds[:, 1, None, None]) ** 2, axis=0)
     masks = torch.from_numpy(labels[None] == np.arange(8)[:, None, None]).cuda()
     cfg = bini.BiniConfig(cg_max_iter=1000, cg_tol=1e-3)
-    if 480 * 640 * 4 * 10 < bini.K2_FIELD_BYTES_LIMIT:
+    if stencil.cg_holds(480, 640):
         fail("480x640 no longer takes the K1 route")
 
     with first_inputs(torch, stencil, "bini_apply") as path_inputs:

@@ -12,8 +12,8 @@ bilateral weights w_d (outer iterations) and Jacobi-preconditioned CG
 inside.  The per-segment constant of zt is fixed to mean 0 in the mask.
 
 The CG runs on the stencil kernels of ``ops/stencil.py``: a field small
-enough for one CTA goes to K2 (the whole CG per segment), a larger one to
-``_pcg`` here, which calls K1 once per iteration.
+enough for one thread-block cluster goes to K2 (the whole CG per segment),
+a larger one to ``_pcg`` here, which calls K1 once per iteration.
 """
 
 from __future__ import annotations
@@ -25,10 +25,13 @@ import torch
 
 from ..ops import stencil
 
-# K2 takes a field when its ten f32 fields fit the TPU's 8 MiB of VMEM, the
-# rule of the JAX package (bini.py:258-260).  The figure is the TPU's, not
-# this card's; re-deriving it for the H100 is open work (PERF.md).
-K2_FIELD_BYTES_LIMIT = 8 * 2**20
+# Routing: a field goes to K2 where ``stencil.cg_holds`` says K2's plan
+# holds it on chip, at most 16 CTAs of at most ``stencil.K2_BAND_PIXELS_MAX``
+# pixels each (81,920 pixels at most, fewer for wide fields), and to
+# ``_pcg`` on K1 otherwise.  The JAX package routes on the TPU's 8 MiB of
+# VMEM instead (bini.py:258-260, ten f32 fields, 209,715 pixels).  The
+# H100 times of both routes at fields on either side are in PERF.md
+# (``eval/compare_k2.py --routes``).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,8 +232,7 @@ def _solve_given_coeffs(D, c_u, c_v, masks, config: BiniConfig, plain: bool = Fa
 
     apply_fn = stencil.bini_apply_reference if plain else stencil.bini_apply
     cg_fn = stencil.bini_cg_reference if plain else stencil.bini_cg
-    h, w = maskf.shape[-2], maskf.shape[-1]
-    in_kernel = (h * w * 4 * 10) < K2_FIELD_BYTES_LIMIT
+    in_kernel = stencil.cg_holds(maskf.shape[-2], maskf.shape[-1])
 
     for _ in range(config.outer_iters):
         q, b, diag = _system(D, c_u, c_v, em, w_u, w_v)

@@ -11,13 +11,34 @@
 
 #include <cuda_runtime.h>
 
-//
-// `p` carries no __restrict__: K2 rewrites it between calls within one
-// kernel, and a restrict-qualified read-only pointer lets the compiler load
-// it through the non-coherent read-only cache, which can return the values
-// from before the rewrite.
+// A p at one pixel from its value p0, its four neighbours (left pl, right
+// pr, up pu, down pd, already wrapped) and the eight q values the stencil
+// reads there: q_d at the pixel (`_c`, `_r`) and at the neighbour the
+// adjoint reads (`_cm`: column c-1, `_cp`: c+1, `_rm`: row r-1, `_rp`: r+1).
+__device__ __forceinline__ float bini_stencil(
+    float p0, float pl, float pr, float pu, float pd, float qup_c,
+    float qup_cm, float qum_c, float qum_cp, float qvp_r, float qvp_rm,
+    float qvm_r, float qvm_rp) {
+  const float d_right = pr - p0;  // p[r, c+1] - p[r, c]
+  const float d_left = p0 - pl;   // p[r, c] - p[r, c-1]
+  const float d_down = pd - p0;   // p[r+1, c] - p[r, c]
+  const float d_up = p0 - pu;     // p[r, c] - p[r-1, c]
+  // y_d = q_d * D_d p at this pixel and at the neighbour the adjoint reads
+  const float y_up_c = qup_c * d_right;
+  const float y_up_cm = qup_cm * d_left;
+  const float y_um_c = qum_c * d_left;
+  const float y_um_cp = qum_cp * d_right;
+  const float y_vp_r = qvp_r * d_down;
+  const float y_vp_rm = qvp_rm * d_up;
+  const float y_vm_r = qvm_r * d_up;
+  const float y_vm_rp = qvm_rp * d_down;
+  return (((y_up_cm - y_up_c) + (y_um_c - y_um_cp)) + (y_vp_rm - y_vp_r)) +
+         (y_vm_r - y_vm_rp);
+}
+
+// A p at pixel (r, c) of one (H, W) field in device memory.
 __device__ __forceinline__ float bini_apply_at(
-    const float* p, const float* __restrict__ q_up,
+    const float* __restrict__ p, const float* __restrict__ q_up,
     const float* __restrict__ q_um, const float* __restrict__ q_vp,
     const float* __restrict__ q_vm, int r, int c, int H, int W) {
   const int cm = c == 0 ? W - 1 : c - 1;
@@ -25,22 +46,10 @@ __device__ __forceinline__ float bini_apply_at(
   const int rm = r == 0 ? H - 1 : r - 1;
   const int rp = r == H - 1 ? 0 : r + 1;
   const int i = r * W + c;
-  const float p0 = p[i];
-  const float d_right = p[r * W + cp] - p0;  // p[r, c+1] - p[r, c]
-  const float d_left = p0 - p[r * W + cm];   // p[r, c] - p[r, c-1]
-  const float d_down = p[rp * W + c] - p0;   // p[r+1, c] - p[r, c]
-  const float d_up = p0 - p[rm * W + c];     // p[r, c] - p[r-1, c]
-  // y_d = q_d * D_d p at this pixel and at the neighbour the adjoint reads
-  const float y_up_c = q_up[i] * d_right;
-  const float y_up_cm = q_up[r * W + cm] * d_left;
-  const float y_um_c = q_um[i] * d_left;
-  const float y_um_cp = q_um[r * W + cp] * d_right;
-  const float y_vp_r = q_vp[i] * d_down;
-  const float y_vp_rm = q_vp[rm * W + c] * d_up;
-  const float y_vm_r = q_vm[i] * d_up;
-  const float y_vm_rp = q_vm[rp * W + c] * d_down;
-  return (((y_up_cm - y_up_c) + (y_um_c - y_um_cp)) + (y_vp_rm - y_vp_r)) +
-         (y_vm_r - y_vm_rp);
+  return bini_stencil(p[i], p[r * W + cm], p[r * W + cp], p[rm * W + c],
+                      p[rp * W + c], q_up[i], q_up[r * W + cm], q_um[i],
+                      q_um[r * W + cp], q_vp[i], q_vp[rm * W + c], q_vm[i],
+                      q_vm[rp * W + c]);
 }
 
 // Sum of one value per thread over the block, in a fixed tree order.

@@ -11,6 +11,9 @@ plain PyTorch version.  The plain versions ``bini_apply_reference`` and
 ``bini_cg_reference`` repeat the kernels' math; besides the CPU they serve
 the tests and ``chip_smoke.py``, which hold each kernel against them.
 
+K2 runs each segment's whole CG on one thread-block cluster, laid out by
+``cg_plan``, a pure function of the field's shape.
+
 Each wrapper adds one to ``launch_counts[name]`` per kernel launch and
 nowhere else, so a run can show that it went through the kernels.
 """
@@ -18,6 +21,8 @@ nowhere else, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -161,10 +166,130 @@ def _lib_apply():
 def _lib_cg():
     lib = _build.library("bini_cg.cu")
     if not getattr(lib, "_typed", False):
-        lib.bini_cg_launch.argtypes = [_P] * 14 + [_I, _I, _I, _I, ctypes.c_float, _P]
+        lib.bini_cg_launch.argtypes = [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 2 + [_P]
         lib.bini_cg_launch.restype = _I
+        lib.bini_cg_max_clusters.argtypes = [_I] * 4
+        lib.bini_cg_max_clusters.restype = _I
         lib._typed = True
     return lib
+
+
+class CgPlan(NamedTuple):
+    """How K2 lays one (H, W) segment out: a cluster of ``cluster`` CTAs of
+    ``threads`` threads, each holding a band of rows in ``smem_bytes`` of
+    shared memory."""
+
+    cluster: int
+    threads: int
+    smem_bytes: int
+
+
+# What one CTA can hold (``csrc/bini_cg.cu``, which repeats these figures,
+# works out the shared memory itself and refuses a plan it does not hold):
+# the shared memory a CTA can opt into on the H100, the largest
+# non-portable cluster, and the largest CTA for each count of pixels a
+# thread owns (registers: x, r and Ap of each owned pixel).
+K2_SMEM_BYTES_MAX = 232_448
+K2_MAX_CLUSTER = 16
+K2_THREADS_BY_PIXELS = ((2, 1024), (4, 1024), (8, 640))
+K2_BAND_PIXELS_MAX = max(ppt * t for ppt, t in K2_THREADS_BY_PIXELS)
+# Shared memory: 136 doubles for the reductions, then eight floats a band
+# pixel (p, q_up, q_um, 1/diag, mask, the best iterate, q_vp, q_vm) and
+# eight a column (q_vp's and q_vm's halo rows, p's two halo rows, and the
+# mailbox of the band's edge rows: p and z of its first and last row).
+_K2_REDUCE_BYTES = 8 * 136
+_K2_BAND_FIELDS = 8
+_K2_COLUMN_FIELDS = 8
+# The plan by field pixels: the first entry (pixels, cluster, pixels a
+# thread) whose pixel count is at least the field's; a field larger than
+# all takes 16 CTAs of 2 pixels a thread.  From the sweep on the H100
+# (PERF.md, ``eval/compare_k2.py --sweep``).
+K2_PLAN_BY_PIXELS = ((32 * 32, 1, 2), (64 * 64, 8, 2), (128 * 128, 8, 4))
+
+
+def cg_smem_bytes(rows_max: int, W: int) -> int:
+    """K2's shared memory a CTA for bands of at most ``rows_max`` rows of W."""
+    return _K2_REDUCE_BYTES + 4 * (_K2_BAND_FIELDS * rows_max * W + _K2_COLUMN_FIELDS * W)
+
+
+def cg_pixels_per_thread(H: int, W: int, cluster: int, threads: int) -> int:
+    """The pixels each thread owns when ``cluster`` CTAs of ``threads``
+    threads hold an (H, W) segment (2, 4 or 8): the fewest that cover the
+    largest band.  0 where they do not hold it."""
+    if not (1 <= cluster <= min(K2_MAX_CLUSTER, H) and W >= 1
+            and 32 <= threads <= 1024 and threads % 32 == 0):
+        return 0
+    rows_max = -(-H // cluster)
+    if cg_smem_bytes(rows_max, W) > K2_SMEM_BYTES_MAX:
+        return 0
+    for ppt, t_max in K2_THREADS_BY_PIXELS:
+        if rows_max * W <= ppt * threads and threads <= t_max:
+            return ppt
+    return 0
+
+
+def _plan_for_cluster(H: int, W: int, C: int, ppt_min: int) -> CgPlan | None:
+    """The plan with C CTAs and the fewest pixels a thread, at least
+    ``ppt_min``, that cover a band of ceil(H / C) rows, or None where none
+    does or the band does not fit one CTA's shared memory."""
+    rows_max = -(-H // C)
+    smem = cg_smem_bytes(rows_max, W)
+    if smem > K2_SMEM_BYTES_MAX:
+        return None
+    for ppt, t_max in K2_THREADS_BY_PIXELS:
+        T = 32 * -(-rows_max * W // (32 * ppt))  # whole warps
+        if ppt >= ppt_min and T <= t_max:
+            return CgPlan(C, T, smem)
+    return None
+
+
+def _find_plan(H: int, W: int) -> CgPlan | None:
+    if H < 1 or W < 1:
+        return None
+    first, ppt = next(((c, t) for n, c, t in K2_PLAN_BY_PIXELS if H * W <= n),
+                      (K2_MAX_CLUSTER, 2))
+    for C in range(min(first, H), min(K2_MAX_CLUSTER, H) + 1):
+        plan = _plan_for_cluster(H, W, C, ppt)
+        if plan is not None:
+            return plan
+    return None
+
+
+def cg_holds(H: int, W: int) -> bool:
+    """Whether K2 holds an (H, W) segment, i.e. ``cg_plan`` has a plan for
+    it.  BiNI routes on this: a field K2 holds takes K2, any other the
+    K1-per-iteration CG."""
+    return _find_plan(H, W) is not None
+
+
+def cg_plan(H: int, W: int) -> CgPlan:
+    """K2's launch plan for an (H, W) segment, a pure function of the shape.
+
+    The cluster size and pixels a thread come from ``K2_PLAN_BY_PIXELS``
+    (at most H CTAs); where its bands are too large for one CTA, the next
+    larger cluster that holds them.  Raises ValueError where no cluster of
+    at most min(16, H) CTAs cuts the field into bands that one CTA holds:
+    at most ``K2_BAND_PIXELS_MAX`` pixels in at most ``K2_SMEM_BYTES_MAX``
+    bytes of shared memory (``cg_smem_bytes``), tested at ceil(H / min(16,
+    H)) rows of W."""
+    plan = _find_plan(H, W)
+    if plan is None:
+        c_max = min(K2_MAX_CLUSTER, max(H, 1))
+        raise ValueError(
+            f"bini_cg: no plan holds a {H}x{W} field: bands of ceil({H}/{c_max}) "
+            f"rows of {W} exceed what one CTA holds ({K2_BAND_PIXELS_MAX} pixels, "
+            f"{K2_SMEM_BYTES_MAX} bytes)")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _check_schedulable(device_index: int, H: int, W: int, plan: CgPlan) -> None:
+    """Raise unless the card can hold at least one cluster of the plan."""
+    with torch.cuda.device(device_index):
+        n = _lib_cg().bini_cg_max_clusters(H, W, plan.cluster, plan.threads)
+    if n <= 0:
+        why = "cannot schedule it" if n == 0 else f"CUDA error {-n}"
+        raise RuntimeError(f"bini_cg: plan {plan} for {H}x{W}: the card {why}")
 
 
 def bini_apply(p, q_up, q_um, q_vp, q_vm):
@@ -192,24 +317,25 @@ def bini_apply(p, q_up, q_um, q_vp, q_vm):
 
 
 def bini_cg(b, x0, mask, diag, q_up, q_um, q_vp, q_vm, max_iter: int, tol: float):
-    """K2: per-segment Jacobi-PCG over (N, H, W) fields, each segment in its
-    own CTA.  ``mask`` is float 0/1, ``diag`` is A's diagonal.  Returns
-    (best iterate (N, H, W), iterations run (N,) int32)."""
+    """K2: per-segment Jacobi-PCG over (N, H, W) fields, each segment on its
+    own cluster of CTAs laid out by ``cg_plan(H, W)`` (which raises for a
+    shape it does not hold).  ``mask`` is float 0/1, ``diag`` is A's
+    diagonal.  Returns (best iterate (N, H, W), iterations run (N,) int32)."""
     if b.device.type == "cpu":
         return bini_cg_reference(b, x0, mask, diag, q_up, q_um, q_vp, q_vm, max_iter, tol)
     if b.device.type != "cuda":
         raise ValueError(f"bini_cg: no kernel for device {b.device}")
     fields = (b, x0, mask, diag, q_up, q_um, q_vp, q_vm)
     N, H, W = _check_fields("bini_cg", fields)
+    plan = cg_plan(H, W)
     lib = _lib_cg()
+    _check_schedulable(b.device.index, H, W, plan)
     out = torch.empty_like(b)
-    scratch = torch.empty((4, N, H, W), dtype=b.dtype, device=b.device)
     iters = torch.empty(N, dtype=torch.int32, device=b.device)
     with torch.cuda.device(b.device):
         err = lib.bini_cg_launch(
-            *(t.data_ptr() for t in fields), out.data_ptr(),
-            *(s.data_ptr() for s in scratch), iters.data_ptr(),
-            N, H, W, int(max_iter), float(tol), _stream(b),
+            *(t.data_ptr() for t in fields), out.data_ptr(), iters.data_ptr(),
+            N, H, W, int(max_iter), float(tol), plan.cluster, plan.threads, _stream(b),
         )
     if err:
         raise RuntimeError(f"bini_cg: kernel launch failed with CUDA error {err}")

@@ -3,8 +3,9 @@ CPU, at 48x64 plane normals with 4 masks, 2 outer iterations and at most
 200 CG iterations.
 
 On the CPU the JAX package solves every field with its host ``_pcg``; the
-port takes the K2 plain version for fields under the size limit.  Both are
-the same per-segment CG, so the log-depths agree to 1e-3 absolute.  The
+port takes the K2 plain version for fields K2's launch plan holds
+(``stencil.cg_holds``) and ``_pcg`` for the others.  Both are the same
+per-segment CG, so the log-depths agree to 1e-3 absolute.  The
 system pieces (coefficients, edge masks, system, weights) agree to 1e-5.
 """
 
@@ -137,3 +138,32 @@ class TestIntegrate:
         b = tbini.integrate_normals(tt(normals), torch.from_numpy(masks[:2]), tt(K), cfg,
                                     plain=True)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,route", [((2, 12, 16), "bini_cg"), ((2, 1, 3616), "bini_apply")])
+def test_routes_on_what_k2_holds(monkeypatch, shape, route):
+    """A field K2's plan holds takes K2; a 1x3616 row, which K2 does not
+    hold (one CTA's shared memory), takes ``_pcg`` on K1.  Either way the
+    result agrees with the JAX package."""
+    from super_primitive_tpu_torch.ops import stencil
+
+    N, h, w = shape
+    r = np.random.default_rng(2)
+    normals = r.normal(size=(h, w, 3)).astype(np.float32)
+    normals[..., 2] = -np.abs(normals[..., 2]) - 1.0
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    K = np.array([[1.08 * w, 0, w / 2], [0, 1.08 * w, h / 2], [0, 0, 1]], np.float32)
+    masks = r.uniform(size=shape) > 0.3
+    called = {"bini_cg": 0, "bini_apply": 0}
+    for name in called:
+        def spy(*args, _name=name, _fn=getattr(stencil, name)):
+            called[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(stencil, name, spy)
+    cfg_t = tbini.BiniConfig(outer_iters=2, cg_max_iter=100)
+    cfg_j = jbini.BiniConfig(outer_iters=2, cg_max_iter=100)
+    zt_t = tbini.integrate_normals(tt(normals), torch.from_numpy(masks), tt(K), cfg_t)
+    zt_j = jbini.integrate_normals(jnp.asarray(normals), jnp.asarray(masks), jnp.asarray(K), cfg_j)
+    assert stencil.cg_holds(h, w) == (route == "bini_cg")
+    assert called[route] > 0 and sum(called.values()) == called[route]
+    np.testing.assert_allclose(zt_t.numpy(), np.asarray(zt_j), atol=1e-3, rtol=0)
