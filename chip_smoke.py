@@ -14,7 +14,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      2x240x320 (16 CTAs); each with its cluster plan, the longest
      segment's iterations and µs per iteration;
   3b. K3 (``phase_counts``) against its plain version at (3, 128, 128) and
-     at the select rounds' (384 | 192, 256, 256), every count exact;
+     at the select rounds' (384 | 96, 256, 256), and on the adversarial
+     cases of ``eval/k3_cases.py`` (cutoffs, subnormals, NaN and +-inf,
+     Voronoi margins) at 96x256² and 3x128², every count exact;
   4. BiNI on a 480x640 normal field with 8 masks, which takes the
      K1-per-iteration route, against the plain route;
   5. the two-frame slice: two-frame SfM on the synthetic planes sequence at
@@ -24,7 +26,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      photometric cost and its gradients at the solve's init;
   7. the VO slice: ``eval.e2e_synthetic.run_e2e("adam")`` at full width on
      the card (480x640 frames, the device SAM selection on K3, BiNI on K2,
-     the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05.
+     the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05;
+     the share of K3's region pixels that its shortcut leaves to the full
+     16-phase path on the path's inputs.
 
 Launch counts are reset just before the paths of phases 4, 5 and 7 and read
 just after; a kernel of a path that was not launched there fails the run.
@@ -32,7 +36,14 @@ Those paths also keep a copy of each kernel's inputs at every shape they
 give it, and after the path each kernel is checked and timed on them.
 It prints one ``{"kernels": [...]}`` line with each kernel's error, times
 and bound on those inputs (summed over the shapes), the nvidia-smi line,
-and last ``{"ok": true, "device": ...}``.
+and last ``{"ok": true, "device": ...}``.  K1's and K3's rows carry
+``device_ms`` beside the event time: the kernels' own device time (K3's
+with the memset of its counts) from torch.profiler's CUDA activity, which
+the host's launch rate does not bound, on copies of the inputs that do not
+fit the L2 cache; and ``graph_ms``, the replay of a CUDA graph of the same
+calls.  The script fails if the profiler does not see the kernels by name,
+if the two disagree by more than 5 us + 5%, or if either kernel's device
+time is below its bound.
 It exits non-zero without a result where there is no CUDA device, and in a
 directory that does not hold the package beside it.
 """
@@ -42,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -51,16 +63,17 @@ from pathlib import Path
 # core) flop/s, the types these kernels compute in.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# its L2 cache (50 MB): device times cycle through copies of the inputs
+# that together hold three times this, so every call reads from HBM
+L2_BYTES = 50 * 2**20
 # flops per pixel: the stencil of _apply_math (8 + 7) plus <p, Ap> (2) for
 # K1; for one K2 CG iteration the masked stencil (16), three masked dots
-# (9), the x, r and p updates (6) and the preconditioner (2).  K3 forms one
-# row interpolant (3 flops) per low-res column and row phase inside the
-# region, and per upsampled pixel inside it one interpolant (3) and three
-# comparisons (its integer count additions are not float work)
+# (9), the x, r and p updates (6) and the preconditioner (2).  K3's bound
+# has no operation term: its shortcut settles most pixels from their 3x3
+# window's range, exactly, so the reference's 16 interpolants a pixel are
+# no floor on the work an exact kernel must do; the bytes are.
 K1_FLOPS_PER_PIXEL = 17
 K2_FLOPS_PER_PIXEL_ITER = 33
-K3_FLOPS_ROW_INTERP = 3
-K3_FLOPS_PER_UP_PIXEL = 6
 VO_FRAMES = 12
 # phase 3's K2 shapes: the VO path's largest call at each crop bucket (its
 # first keyframe, round 1) and the full 240x320 integration field
@@ -92,6 +105,80 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def profiled_ms(torch, fn, calls, names: tuple[str, ...]) -> tuple[float, dict]:
+    """Device time of one call from torch.profiler's CUDA activity over
+    ``calls``: for each of ``names`` (kernels, and a memset the wrapper
+    issues; each runs once a call) the mean duration of its records, since
+    CUPTI, kept up between sessions (see main), may deliver only part of a
+    session's records.  Returns (ms, records seen per name); fails unless
+    every name was seen, no more often than the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in calls:
+            fn(*a)
+        torch.cuda.synchronize()
+    seen = {name: [] for name in names}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in ev.name:
+                    seen[name].append(ev.time_range.elapsed_us())
+    counts = {name: len(us) for name, us in seen.items()}
+    if not all(1 <= n <= len(calls) for n in counts.values()):
+        fail(f"torch.profiler saw {counts} records in {len(calls)} calls")
+    return sum(sum(us) / len(us) for us in seen.values()) / 1e3, counts
+
+
+def replayed_ms(torch, graph, n_calls: int) -> float:
+    """Device time of one call from the fastest of three replays of a CUDA
+    graph of ``n_calls`` calls (it adds the gaps between launches)."""
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n_calls)
+    return min(times)
+
+
+def device_ms(torch, fn, args, names: tuple[str, ...], min_calls: int = 20):
+    """(profiler ms, graph ms): the device time of one ``fn(*args)`` with
+    its inputs in HBM, not in L2, by ``profiled_ms`` and ``replayed_ms``
+    over the same calls, which cycle through copies of ``args`` that
+    together hold 3x the L2 cache.  Where the two differ by more than 5 us
+    + 5%, both are measured again (a clock excursion during one of them);
+    fails if they differ three times."""
+    nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    copies = max(2, -(-3 * L2_BYTES // nbytes))
+    sets = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(copies)]
+    calls = [sets[k % copies] for k in range(max(min_calls, copies))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in calls:
+            fn(*a)
+    graph.replay()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        prof_ms, counts = profiled_ms(torch, fn, calls, names)
+        graph_ms = replayed_ms(torch, graph, len(calls))
+        seen.append(f"profiler {prof_ms * 1e3:.2f} us ({counts} records in {len(calls)} "
+                    f"calls), graph replay {graph_ms * 1e3:.2f} us")
+        if abs(graph_ms - prof_ms) <= 5e-3 + 0.05 * graph_ms:
+            return prof_ms, graph_ms
+    fail(f"device times of {names} disagree: " + "; ".join(seen))
 
 
 def host_ms(torch, fn) -> float:
@@ -157,18 +244,23 @@ def k1_row(torch, stencil, p, *qs) -> dict:
     err_ap = float((ap_k - ap_r).abs().max() / ap_r.abs().max().clamp(min=1e-30))
     err_dot = float(((dots_k - dots_r).abs() / dots_r.abs().clamp(min=1e-30)).max())
     ms = time_ms(torch, lambda: stencil.bini_apply(p, *qs), reps=100)
+    dev_ms, graph_ms = device_ms(torch, stencil.bini_apply, (p, *qs),
+                                 ("bini_apply_kernel", "sum_partials_kernel"))
     plain_ms = time_ms(torch, lambda: stencil.bini_apply_reference(p, *qs), reps=20)
     nbytes, flops = (6 * N * H * W + N) * 4, K1_FLOPS_PER_PIXEL * N * H * W
     b_ms, b_by = bound_ms(nbytes, flops)
     print(f"K1 {N}x{H}x{W}: rel err Ap {err_ap:.2e} dot {err_dot:.2e}; "
-          f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-          f"bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+          f"kernel {ms * 1e3:.1f} us (device {dev_ms * 1e3:.2f} us, graph "
+          f"{graph_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
     if not (err_ap <= 1e-5 and err_dot <= 1e-5):
         fail(f"K1 disagrees with its plain version at {N}x{H}x{W}")
+    if dev_ms < b_ms:
+        fail(f"K1's device time at {N}x{H}x{W} is below its bound")
     return {"shape": [N, H, W], "max_abs_err": float((ap_k - ap_r).abs().max()),
             "rel_err_ap": err_ap, "rel_err_dot": err_dot, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "device_ms": dev_ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
 
 
 def masked_residual(torch, stencil, x, b, maskf, qs):
@@ -266,45 +358,87 @@ def upsample_counts(torch, x, s, input_hw):
     return tuple(torch.sum(up > t, dim=(1, 2), dtype=torch.int32) for t in (1.0, -1.0, 0.0))
 
 
+def k3_bytes(N, S, s, input_hw) -> int:
+    """The bytes an exact K3 must move: the region's low-res rows and the
+    clamped neighbour row below them, read once, and three counts a slab."""
+    R = min(-(-input_hw[0] // s) + 1, S)
+    return (N * R * S + 3 * N) * 4
+
+
 def k3_row(torch, k3, x, s, input_hw) -> dict:
     """K3 against phase_counts_reference on one input, every count exact;
-    kernel, plain and library (upsample + counts) times; the bound (the slab
-    read once, three counts written; the region's interpolants and
-    comparisons).  The library route's count difference is printed, not
-    held: it interpolates in its own order."""
+    kernel (events and device), plain and library (upsample + counts) times;
+    the bound (bytes only, see K1_FLOPS_PER_PIXEL).  The library route's
+    count difference is printed, not held: it interpolates in its own
+    order."""
     N, S, _ = x.shape
     got = k3.phase_counts(x, s, input_hw)
     want = k3.phase_counts_reference(x, s, input_hw)
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
     lib_err = max(int((g - w).abs().max()) for g, w in zip(got, upsample_counts(torch, x, s, input_hw)))
     ms = time_ms(torch, lambda: k3.phase_counts(x, s, input_hw), reps=50)
+    dev_ms, graph_ms = device_ms(torch, lambda x_: k3.phase_counts(x_, s, input_hw), (x,),
+                                 ("phase_counts_kernel", "Memset"))
     plain_ms = time_ms(torch, lambda: k3.phase_counts_reference(x, s, input_hw), reps=3)
     library_ms = time_ms(torch, lambda: upsample_counts(torch, x, s, input_hw), reps=5)
-    R, C = min(input_hw[0], s * S), min(input_hw[1], s * S)
-    nbytes = (N * S * S + 3 * N) * 4
-    flops = N * (K3_FLOPS_ROW_INTERP * R * S + K3_FLOPS_PER_UP_PIXEL * R * C)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    print(f"K3 {N}x{S}x{S} s={s} hw={tuple(input_hw)}: max abs err {err} (library route "
-          f"{lib_err}); kernel {ms * 1e3:.1f} us, plain {plain_ms:.3f} ms, library "
-          f"{library_ms:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+    nbytes = k3_bytes(N, S, s, input_hw)
+    b_ms, b_by = bound_ms(nbytes, 0)
+    print(f"K3 {N}x{S}x{S} s={s} hw={tuple(input_hw)} plan {k3.launch_plan(N, S, s, input_hw)}: "
+          f"max abs err {err} (library route {lib_err}); kernel {ms * 1e3:.1f} us (device "
+          f"{dev_ms * 1e3:.2f} us, graph {graph_ms * 1e3:.2f} us), plain {plain_ms:.3f} ms, "
+          f"library {library_ms:.3f} ms, bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
     if err != 0:
         fail(f"K3 disagrees with its plain version at {N}x{S}x{S}")
+    if dev_ms < b_ms:
+        fail(f"K3's device time at {N}x{S}x{S} is below its bound")
     return {"shape": [N, S, S], "input_hw": list(input_hw), "max_abs_err": err,
-            "library_count_diff": lib_err, "ms": ms, "plain_ms": plain_ms,
+            "library_count_diff": lib_err, "ms": ms, "device_ms": dev_ms,
+            "graph_ms": graph_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": 0}
 
 
 def check_k3(torch, k3):
     """Phase 3b: K3 against its plain version at (3, 128, 128) and at the
-    select rounds' shapes, on logits scaled like the fake decoder's
-    margins."""
+    select rounds' shapes, on logits scaled like the fake decoder's margins
+    (timed); then, every count exact, on the adversarial cases."""
+    from super_primitive_tpu_torch.eval.k3_cases import KINDS, k3_case
+
     g = torch.Generator().manual_seed(3)
     rows = []
-    for N, S, hw in [(3, 128, (503, 491)), (384, 256, (768, 1024)), (192, 256, (768, 1024))]:
+    for N, S, hw in [(3, 128, (503, 491)), (384, 256, (768, 1024)), (96, 256, (768, 1024))]:
         x = (torch.randn(N, S, S, generator=g) * 4).cuda()
         rows.append(k3_row(torch, k3, x, 4, hw))
+    checked = 0
+    for kind in KINDS:
+        for N, S, hw in [(96, 256, (768, 1024)), (96, 256, (503, 491)), (3, 128, (503, 491))]:
+            x = k3_case(kind, N, S, 4, hw).cuda()
+            for g_, w_ in zip(k3.phase_counts(x, 4, hw), k3.phase_counts_reference(x, 4, hw)):
+                if not torch.equal(g_, w_):
+                    fail(f"K3 disagrees with its plain version on {kind} at {N}x{S}² {hw}")
+            checked += 1
+    print(f"K3 adversarial cases ({', '.join(KINDS)}): {checked} inputs, every count exact",
+          flush=True)
     return rows
+
+
+def undecided_share(torch, k3, x, s, input_hw) -> float:
+    """The share of the region's low-res pixels that K3's shortcut leaves to
+    the full 16-phase path: those whose clamped 3x3 window is not finite or
+    straddles a threshold's cutoffs (``phase_counts.phase_cutoffs``)."""
+    N, S, _ = x.shape
+    R, C = k3.region_lowres(S, s, input_hw)
+    cut = k3.phase_cutoffs(s)
+    xp = torch.nn.functional.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    mn, mx = xp[:, :S, :S], xp[:, :S, :S]
+    for a in range(3):
+        for b in range(3):
+            w = xp[:, a:a + S, b:b + S]
+            mn, mx = torch.minimum(mn, w), torch.maximum(mx, w)
+    up = sum((mn >= c).int() for c in cut[:3])
+    nb = sum((~(mx <= d)).int() for d in cut[3:])
+    settled = (up == nb) & torch.isfinite(mn) & torch.isfinite(mx)
+    return float((~settled[:, :R, :C]).float().mean())
 
 
 def check_bini_480(torch, bini, stencil):
@@ -514,10 +648,21 @@ def run_vo(torch, stencil, k3):
         fail(f"the VO slice's Sim(3) ATE {ate} is not below 0.05")
     k2_rows = [k2_row(torch, stencil, *args) for args in k2_inputs.values()]
     k3_rows = [k3_row(torch, k3, *args) for args in k3_inputs.values()]
+    for row, args in zip(k3_rows, k3_inputs.values()):
+        row["undecided_share"] = undecided_share(torch, k3, *args)
+    print("K3 shortcut on the VO path's inputs: " + ", ".join(
+        f"{r['shape'][0]} slabs {100 * r['undecided_share']:.2f}% of region pixels to the full "
+        "path" for r in k3_rows), flush=True)
     return launches, k2_rows, k3_rows, summary
 
 
 def main() -> int:
+    # torch.profiler tears CUPTI down after each session and sets it up again
+    # at the next; once CUDA graphs have run (device_ms replays them) a later
+    # session can then report no kernels.  torch's own workaround, which it
+    # applies only to inductor's graphs: keep CUPTI up.
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     import torch
 
     import super_primitive_tpu_torch as pkg
@@ -563,11 +708,14 @@ def main() -> int:
         flops = sum(r["flops"] for r in path_rows)
         b_ms, b_by = bound_ms(nbytes, flops)
         lib = [r.get("library_ms") for r in path_rows]
+        dev = [r.get("device_ms") for r in path_rows]
+        graph = [r.get("graph_ms") for r in path_rows]
         return {"name": name, "route": "cuda",
                 "source": f"super_primitive_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in path_rows),
                 "ms": sum(r["ms"] for r in path_rows),
+                **({} if None in dev else {"device_ms": sum(dev), "graph_ms": sum(graph)}),
                 "plain_ms": sum(r["plain_ms"] for r in path_rows),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if None in lib else sum(lib),
