@@ -28,10 +28,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the card (480x640 frames, the device SAM selection on K3, BiNI on K2,
      the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05;
      the share of K3's region pixels that its shortcut leaves to the full
-     16-phase path on the path's inputs.
+     16-phase path on the path's inputs;
+  8. the real nets at full width, on seeded synthetic weights in the
+     published names (``nets/synth.py``): SAM ViT-H and the EfficientNet-B5
+     NNET, loaded with ``load_state_dict`` into the frontend of
+     ``configs/planes_odom.yaml`` (SAM at 240x320 -> a 768x1024 input, 128 +
+     32 prompts, the NNET at 480x640; SAM in bf16).  On the SAM weights
+     scaled to a trained net's (``synth.scale_like_trained``), in float32
+     with TF32 off, the card agrees with the CPU on one windowed and one
+     global ViT-H block at 64x64 tokens and the prompt encoder and decoder
+     on the card's features for a 32-prompt round, and on the NNET at
+     480x640, within ``NET_CARD_TOL``; the bf16 SAM stays within
+     ``BF16_TOL`` of the float32 one.  Then two keyframes (cold, warm) and a supporting
+     frame, with K3 launched in both rounds of each keyframe and K2 wherever
+     a segment exists, and a 4-frame VO run (``run_sfm.run_odometry``)
+     through the same frontend; K3 (exact) and K2 on the real decoder's and
+     BiNI's recorded inputs; encoder, decode, selection and NNET times.
 
-Launch counts are reset just before the paths of phases 4, 5 and 7 and read
-just after; a kernel of a path that was not launched there fails the run.
+Launch counts are reset just before the paths of phases 4, 5, 7 and 8 and
+read just after; a kernel of a path that was not launched there fails the
+run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it, and after the path each kernel is checked and timed on them.
 It prints one ``{"kernels": [...]}`` line with each kernel's error, times
@@ -80,6 +96,19 @@ VO_FRAMES = 12
 K2_CHECK_SHAPES = [(2, 32, 32), (34, 64, 64), (14, 128, 128), (8, 240, 320)]
 # the ring-halo shapes: one CTA, 8 CTAs and 16 CTAs a segment
 K2_RING_SHAPES = [(2, 32, 32), (3, 128, 128), (2, 240, 320)]
+REAL_NET_FRAMES = 4
+# phase 8, card against CPU in float32: relative to max|CPU| for the ViT-H
+# blocks and the decoder's logits and IoU, on the synthetic SAM weights at
+# a trained net's scale (``synth.scale_like_trained``; the std-1 weights
+# saturate the softmax, where two summation orders part by ~1e-4), and
+# absolute for the NNET's unit normals and kappa.  An H100 read 3.1e-6
+# (block 0), 1.2e-6 (block 7), 9.1e-7 / 1.0e-6 (decoder logits / IoU) and
+# 3.0e-7 (NNET); the decoder's limit is the JAX oracle's 4.0e-6.
+NET_CARD_TOL = {"block": 1e-5, "decoder": 4e-6, "nnet": 1e-5}
+# bf16 SAM against float32 on the same scaled weights, relative to the
+# float32 run's largest magnitude: about twice an H100's readings of
+# 2.5e-2 (features), 2.8e-2 (logits) and 1.2e-2 (IoU)
+BF16_TOL = {"features": 5e-2, "logits": 6e-2, "iou": 3e-2}
 
 
 def fail(msg: str):
@@ -656,6 +685,242 @@ def run_vo(torch, stencil, k3):
     return launches, k2_rows, k3_rows, summary
 
 
+def busy_ms(torch, fn) -> tuple[float, int]:
+    """(ms, records): the summed durations of the device's kernels, copies
+    and memsets in one call of ``fn`` (after a warm-up), from
+    torch.profiler's CUDA activity; one stream, so nothing overlaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not us:
+        fail("torch.profiler saw no device activity")
+    return sum(us) / 1e3, len(us)
+
+
+def rel_err(got, want) -> float:
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max() / want.abs().max())
+
+
+def real_nets_config(pkg_dir: Path):
+    """``configs/planes_odom.yaml`` with the filter that drops a mask whose
+    prompt does not lie on it off (``filter_edge_points``): random weights
+    cannot segment around their prompt."""
+    import dataclasses
+
+    from super_primitive_tpu_torch.config import load_config
+
+    cfg = load_config(str(pkg_dir / "configs" / "planes_odom.yaml"))
+    sam = dataclasses.replace(cfg.sam_params, filter_edge_points=False)
+    return dataclasses.replace(cfg, sam_params=sam,
+                               save_path=str(Path("build") / "chip_smoke" / "real_nets"))
+
+
+def nets_card_vs_cpu(torch, p32, nnet, sam_img, image_u8, network_dim, pts) -> dict:
+    """Phase 8's float32 agreement: ViT-H block 0 (windowed, 25 windows of
+    14² over the 64x64 grid padded to 70) and the first global block on
+    the activations the card's encoder gives them; the prompt encoder and
+    decoder on the card's features for ``pts``; the NNET at
+    ``network_dim``.  Each against a copy of the module on the CPU, relative
+    to the largest CPU magnitude, except the NNET's unit normals and kappa
+    (absolute)."""
+    import copy
+
+    from super_primitive_tpu_torch.nets.nnet import preprocess
+    from super_primitive_tpu_torch.nets.sam.predictor import decode_prompts
+
+    def on_cpu(module):
+        return copy.deepcopy(module).to("cpu")
+
+    enc = p32.model.image_encoder
+    blocks = (0, p32.cfg.global_attn_indexes[0])
+    seen = {}
+    hooks = [enc.blocks[i].register_forward_pre_hook(
+        lambda m, a, i=i: seen.setdefault(i, a[0].clone())) for i in blocks]
+    p32.set_image(sam_img)
+    for h in hooks:
+        h.remove()
+    errs = {}
+    for i in blocks:
+        x, blk = seen[i], enc.blocks[i]
+        errs[f"block{i}"] = rel_err(blk(x), on_cpu(blk)(x.cpu()))
+    masks, iou = p32._decode(pts.cuda())
+    pe = on_cpu(p32.model.prompt_encoder)
+    masks_c, iou_c = decode_prompts(pe, on_cpu(p32.model.mask_decoder), p32._features.cpu(),
+                                    pe.get_dense_pe(), pts)
+    errs["decoder_masks"] = rel_err(masks, masks_c)
+    errs["decoder_iou"] = rel_err(iou, iou_c)
+    img = torch.from_numpy(image_u8).cuda().permute(2, 0, 1).float() / 255.0
+    x = preprocess(img, network_dim)
+    errs["nnet"] = float((nnet(x).cpu() - on_cpu(nnet)(x.cpu())).abs().max())
+    print("real nets, card vs CPU (float32, TF32 off): " + json.dumps(errs), flush=True)
+    bad = [k for k, v in errs.items() if v > NET_CARD_TOL[k.split("_")[0].rstrip("0123456789")]]
+    if bad:
+        fail(f"the card disagrees with the CPU on {bad} beyond {NET_CARD_TOL}")
+    return errs
+
+
+def bf16_vs_f32(torch, p16, p32, img_dev, pts) -> dict:
+    """The bf16 SAM (the frontend's precision) against the float32 one on
+    the same weights: the encoder's features, and the decoded logits and
+    IoU each decoded on its own features; relative to the float32 run's
+    largest magnitude."""
+    f16, f32 = p16.encode(img_dev), p32.encode(img_dev)
+    p16._features, p32._features = f16, f32
+    (m16, i16), (m32, i32) = p16._decode(pts), p32._decode(pts)
+    errs = {"features": rel_err(f16, f32), "logits": rel_err(m16, m32),
+            "iou": rel_err(i16, i32)}
+    print("real nets, bf16 vs float32: " + json.dumps(errs), flush=True)
+    bad = [k for k, v in errs.items() if v > BF16_TOL[k]]
+    if bad:
+        fail(f"bf16 SAM departs from float32 on {bad} beyond {BF16_TOL}")
+    return errs
+
+
+def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
+    """Phase 8: the real nets at full width through the frontend, two
+    keyframes, a supporting frame and a 4-frame VO run on the card; then K3
+    and K2 against their plain versions on the inputs the real nets gave
+    them, and the nets' times."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.data.synthetic import PlanesSequence
+    from super_primitive_tpu_torch.eval.trajectory import ate_rmse
+    from super_primitive_tpu_torch.frontend.process_frame import frontend_from_state_dicts
+    from super_primitive_tpu_torch.image.resize import linear_resize
+    from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
+    from super_primitive_tpu_torch.nets.sam.predictor import SamPredictor
+    from super_primitive_tpu_torch.nets.synth import (
+        scale_like_trained,
+        synth_nnet_state_dict,
+        synth_sam_state_dict,
+    )
+    from super_primitive_tpu_torch.run_sfm import run_odometry
+    from super_primitive_tpu_torch.utils.timing import StageTimer
+
+    t_phase = t0 = time.perf_counter()
+    sd, nsd = synth_sam_state_dict(VIT_H), synth_nnet_state_dict()
+    synth_s = time.perf_counter() - t0
+    cfg = real_nets_config(pkg_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fe = frontend_from_state_dicts(cfg, sd, nsd, "cuda")
+    # the precision checks run on the weights at a trained net's scale
+    sd = scale_like_trained(sd)
+    p32 = SamPredictor(sd, VIT_H, device="cuda")
+    p16 = SamPredictor(sd, VIT_H, compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del sd, nsd
+    predictor, nnet = fe.mask_predict_fn.predictor, fe.normals_fn.model
+    print(f"real nets: synthetic weights {synth_s:.1f} s, loaded (SAM bf16, and bf16 and "
+          f"float32 on the scaled weights; NNET) {load_s:.1f} s", flush=True)
+
+    ds = PlanesSequence(n_frames=REAL_NET_FRAMES, H=480, W=640, path="linear")
+    image_u8 = (np.clip(ds[0]["image"], 0, 1) * 255).astype(np.uint8)
+    sam_img = linear_resize(image_u8, tuple(cfg.sam_params.infer_resolution))
+    img_dev, h2w2 = predictor._upload(sam_img)
+    r = np.random.default_rng(8)
+    pts = torch.from_numpy((r.random((cfg.frontend.num_pts_active, 2))
+                            * [h2w2[1] - 1, h2w2[0] - 1]).round().astype(np.float32))
+    errs = nets_card_vs_cpu(torch, p32, nnet, sam_img, image_u8,
+                            tuple(cfg.frontend.normals.network_dim), pts)
+    errs_bf16 = bf16_vs_f32(torch, p16, p32, img_dev, pts.cuda())
+    del p16
+
+    fe.timer = StageTimer("cuda")
+    kf_s, segs = [], []
+    with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        for i in (0, 1):
+            before = {**stencil.launch_counts, **k3.launch_counts}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kf = fe.process_to_kf(ds[i]["image"], ds[i]["intrinsics"])
+            torch.cuda.synchronize()
+            kf_s.append(time.perf_counter() - t0)
+            segs.append(int(kf["regions"].shape[0]))
+            d_k3 = k3.launch_counts["phase_counts"] - before["phase_counts"]
+            d_k2 = stencil.launch_counts["bini_cg"] - before["bini_cg"]
+            if segs[-1] < 1 or not np.isfinite(kf["logdepth_perseg"]).all():
+                fail(f"real-net keyframe {i}: {segs[-1]} segments or non-finite log-depths")
+            if d_k3 != 2 or d_k2 == 0:
+                fail(f"real-net keyframe {i} launched K3 {d_k3} and K2 {d_k2} times")
+        supp = fe.process_to_supp_kf(ds[2]["image"], ds[2]["intrinsics"])
+        if not np.isfinite(supp["image"]).all():
+            fail("the real-net supporting frame is not finite")
+        kf_stages = {k: round(v, 4) for k, v in fe.timer.totals.items()}
+        fe.timer = None  # the odometry's own StageTimer takes the frontend's stages
+        t0 = time.perf_counter()
+        r = run_odometry(cfg, fe, ds, max_frames=REAL_NET_FRAMES, device="cuda")
+        vo_s = time.perf_counter() - t0
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    odom = r["odom"]
+    est = dict(odom.global_track_trajectory)
+    finite = all(np.isfinite(np.asarray(T)).all() for T in est.values())
+    if odom.num_kfs < 1 or len(est) != REAL_NET_FRAMES - 1 or not finite:
+        fail(f"the real-net VO run: {odom.num_kfs} keyframes, {len(est)} tracked poses, "
+             f"finite {finite}")
+    ate = ate_rmse({ts: np.asarray(ds.poses[int(ts)], np.float32) for ts in est}, est,
+                   align_scale=True)["rmse"]
+    vo_stages = {k: round(v, 4) for k, v in odom.timer.totals.items()}
+    print(f"real nets on {card}: keyframes {kf_s[0]:.2f} s (cold), {kf_s[1]:.2f} s (warm), segments "
+          f"{segs}; stage seconds {json.dumps(kf_stages)}", flush=True)
+    print(f"real-net VO, {REAL_NET_FRAMES} frames: {odom.num_kfs} keyframes, wall {vo_s:.2f} s, "
+          f"keyframe add {[round(w, 3) for _, w, _ in odom.kf_add_log]} s, Sim(3) ATE over the "
+          f"tracked frames {ate:.5f} (random weights: not gated); launches {launches}; stage "
+          f"seconds {json.dumps(vo_stages)}", flush=True)
+    if launches["phase_counts"] == 0 or launches["bini_cg"] == 0:
+        fail("the real-net path did not launch K3 and K2")
+
+    k2_rows = [k2_row(torch, stencil, *args) for args in k2_inputs.values()]
+    k3_rows = [k3_row(torch, k3, *args) for args in k3_inputs.values()]
+    for row, args in zip(k3_rows, k3_inputs.values()):
+        row["undecided_share"] = undecided_share(torch, k3, *args)
+    print("K3 on the real decoder's logits: " + ", ".join(
+        f"{r['shape'][0]} slabs exact, device {r['device_ms'] * 1e3:.2f} us, "
+        f"{100 * r['undecided_share']:.2f}% of region pixels to the full path"
+        for r in k3_rows), flush=True)
+
+    # times, each on the card's events after a warm-up
+    times = {"encoder_bf16_ms": time_ms(torch, lambda: predictor.encode(img_dev), reps=5),
+             "encoder_f32_ms": time_ms(torch, lambda: p32.encode(img_dev), reps=2)}
+    predictor.set_image(sam_img)
+    r = np.random.default_rng(9)
+    calls = {"encoder_bf16": lambda: predictor.encode(img_dev),
+             "nnet": lambda: fe.normals_fn(image_u8)}
+    for n in (cfg.frontend.num_pts, cfg.frontend.num_pts_active):
+        pts = torch.from_numpy((r.random((n, 2)) * [h2w2[1] - 1, h2w2[0] - 1]).astype(np.float32))
+        pts = pts.round().cuda()
+        times[f"decode_{n}_ms"] = time_ms(torch, lambda: predictor._decode(pts), reps=3)
+        calls[f"decode_select_{n}"] = lambda pts=pts: predictor._decode_select(
+            pts, h2w2, 256, 0.0, 0.0)
+        times[f"decode_select_{n}_ms"] = time_ms(torch, calls[f"decode_select_{n}"], reps=3)
+    times["nnet_ms"] = time_ms(torch, calls["nnet"], reps=3)
+    for name, fn in calls.items():
+        times[f"{name}_busy_ms"], times[f"{name}_kernels"] = busy_ms(torch, fn)
+        times[f"{name}_idle_share"] = 1.0 - times[f"{name}_busy_ms"] / times[f"{name}_ms"]
+    times["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"real-net times on {card}: " + json.dumps({k: round(v, 4) for k, v in times.items()}),
+          flush=True)
+    summary = {"card_vs_cpu": errs, "bf16_vs_f32": errs_bf16, "keyframe_s": kf_s,
+               "segments": segs,
+               "keyframe_stage_s": kf_stages, "vo_frames": REAL_NET_FRAMES,
+               "vo_keyframes": odom.num_kfs, "vo_wall_s": vo_s,
+               "vo_kf_add_s": [w for _, w, _ in odom.kf_add_log], "vo_ate_sim3": ate,
+               "vo_stage_s": vo_stages, "launches": launches, "times": times}
+    return launches, k2_rows, k3_rows, summary
+
+
 def main() -> int:
     # torch.profiler tears CUPTI down after each session and sets it up again
     # at the next; once CUDA graphs have run (device_ms replays them) a later
@@ -700,6 +965,8 @@ def main() -> int:
     k2_launches, k2_path = run_slice(torch, stencil)
     small_input_agreement(torch)
     vo_launches, k2_vo, k3_vo, vo = run_vo(torch, stencil, k3)
+    rn_launches, k2_rn, k3_rn, rn = run_real_nets(torch, stencil, k3,
+                                                  Path(pkg.__file__).resolve().parent, smi)
 
     def entry(name, replaces, launches, path_rows, other_rows, **extra):
         """One kernel's line: its numbers summed over the path's recorded
@@ -726,17 +993,22 @@ def main() -> int:
               k1_launches["bini_apply"], k1_path, k1,
               launches_by_path={"bini_480": k1_launches["bini_apply"],
                                 "two_frame": k2_launches["bini_apply"],
-                                "vo": vo_launches["bini_apply"]}),
+                                "vo": vo_launches["bini_apply"],
+                                "real_nets": rn_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
               vo_launches["bini_cg"], k2_vo, k2,
               launches_by_path={"two_frame": k2_launches["bini_cg"],
-                                "vo": vo_launches["bini_cg"]},
-              two_frame_path_shapes=k2_path),
+                                "vo": vo_launches["bini_cg"],
+                                "real_nets": rn_launches["bini_cg"]},
+              two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn),
         entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
               vo_launches["phase_counts"], k3_vo, k3_checks,
-              launches_by_path={"vo": vo_launches["phase_counts"]}),
+              launches_by_path={"vo": vo_launches["phase_counts"],
+                                "real_nets": rn_launches["phase_counts"]},
+              real_nets_path_shapes=k3_rn),
     ]
     print(json.dumps({"vo_slice": vo}))
+    print(json.dumps({"real_nets": rn}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

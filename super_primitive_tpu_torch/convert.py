@@ -1,10 +1,19 @@
-"""Carry the JAX package's state into the port.
+"""Carry the JAX package's state and weights into the port.
 
 ``from_jax_arrays`` turns numpy copies of the JAX package's keyframe dict,
 ``SegmentGeometry``, ``PointBundle`` and ``OptParams`` into the port's
 tensors on a given device, so both packages can solve the same problem.
 Every input is a mapping from field name to an array (``np.asarray`` of the
 JAX leaf); this module imports nothing of JAX.
+
+``sam_from_flax`` and ``nnet_from_flax`` turn the JAX package's numpy
+parameter trees (``nets/convert.convert_sam`` / ``convert_nnet``, the
+``"tree"`` of the ``.npz`` files ``convert_checkpoints.py`` writes, read by
+``load_npz_tree``) into state dicts of the port's modules, whose parameters
+carry the published torch names: the inverse of the JAX converter's
+layouts (Dense kernels transposed, conv kernels (kh, kw, in, out) ->
+(out, in, kh, kw), the ConvTranspose kernels flipped back, the Conv1d refine
+heads from 1x1 convs, BatchNorm statistics from ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -78,4 +87,159 @@ def from_jax_arrays(
             xi=_t(opt["xi"], device, torch.float32),
             kp_logdepth=_t(opt["kp_logdepth"], device, torch.float32),
         )
+    return out
+
+
+def load_npz_tree(path) -> dict:
+    """The parameter tree stored under ``"tree"`` in a converted ``.npz``
+    (``convert_checkpoints.py``'s output)."""
+    with np.load(path, allow_pickle=True) as f:
+        return f["tree"].item()
+
+
+def _w(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _linear(sd, name, p):
+    sd[f"{name}.weight"] = _w(np.asarray(p["kernel"]).T)
+    sd[f"{name}.bias"] = _w(p["bias"])
+
+
+def _conv(sd, name, p):
+    sd[f"{name}.weight"] = _w(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _w(p["bias"])
+
+
+def _norm(sd, name, p, stats=None):
+    sd[f"{name}.weight"] = _w(p["scale"] if "scale" in p else p["weight"])
+    sd[f"{name}.bias"] = _w(p["bias"])
+    if stats is not None:
+        sd[f"{name}.running_mean"] = _w(stats["mean"])
+        sd[f"{name}.running_var"] = _w(stats["var"])
+
+
+def sam_from_flax(tree: dict) -> dict:
+    """State dict (segment-anything names) of ``nets.sam.predictor.Sam``
+    from the JAX package's {image_encoder, prompt_encoder, mask_decoder}
+    tree."""
+    sd: dict = {}
+    enc = tree["image_encoder"]
+    E = "image_encoder"
+    _conv(sd, f"{E}.patch_embed.proj", enc["patch_embed"])
+    sd[f"{E}.pos_embed"] = _w(enc["pos_embed"])
+    depth = sum(1 for k in enc if k.startswith("block"))
+    for i in range(depth):
+        b, p = enc[f"block{i}"], f"{E}.blocks.{i}"
+        _norm(sd, f"{p}.norm1", b["norm1"])
+        _norm(sd, f"{p}.norm2", b["norm2"])
+        _linear(sd, f"{p}.attn.qkv", b["attn"]["qkv"])
+        _linear(sd, f"{p}.attn.proj", b["attn"]["proj"])
+        sd[f"{p}.attn.rel_pos_h"] = _w(b["attn"]["rel_pos_h"])
+        sd[f"{p}.attn.rel_pos_w"] = _w(b["attn"]["rel_pos_w"])
+        _linear(sd, f"{p}.mlp.lin1", b["mlp_lin1"])
+        _linear(sd, f"{p}.mlp.lin2", b["mlp_lin2"])
+    _conv(sd, f"{E}.neck.0", enc["neck_conv1"])
+    _norm(sd, f"{E}.neck.1", enc["neck_ln1"])
+    _conv(sd, f"{E}.neck.2", enc["neck_conv2"])
+    _norm(sd, f"{E}.neck.3", enc["neck_ln2"])
+
+    pe, P = tree["prompt_encoder"], "prompt_encoder"
+    sd[f"{P}.pe_layer.positional_encoding_gaussian_matrix"] = _w(
+        pe["pe_layer"]["positional_encoding_gaussian_matrix"])
+    for i in range(4):
+        sd[f"{P}.point_embeddings.{i}.weight"] = _w(pe[f"point_embed_{i}"])[None]
+    sd[f"{P}.not_a_point_embed.weight"] = _w(pe["not_a_point_embed"])[None]
+    sd[f"{P}.no_mask_embed.weight"] = _w(pe["no_mask_embed"])[None]
+
+    dec, D = tree["mask_decoder"], "mask_decoder"
+
+    def attn_ds(name, p):
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{name}.{proj}", p[proj])
+
+    tr = dec["transformer"]
+    for i in range(sum(1 for k in tr if k.startswith("layer"))):
+        lay, p = tr[f"layer{i}"], f"{D}.transformer.layers.{i}"
+        for a in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            attn_ds(f"{p}.{a}", lay[a])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _norm(sd, f"{p}.{n}", lay[n])
+        _linear(sd, f"{p}.mlp.lin1", lay["mlp_lin1"])
+        _linear(sd, f"{p}.mlp.lin2", lay["mlp_lin2"])
+    attn_ds(f"{D}.transformer.final_attn_token_to_image", tr["final_attn_token_to_image"])
+    _norm(sd, f"{D}.transformer.norm_final_attn", tr["norm_final_attn"])
+    sd[f"{D}.iou_token.weight"] = _w(dec["iou_token"])
+    sd[f"{D}.mask_tokens.weight"] = _w(dec["mask_tokens"])
+    for j, key in ((0, "upscale_conv1"), (3, "upscale_conv2")):
+        # flax (kh, kw, in, out), spatially flipped -> torch (in, out, kh, kw)
+        k = np.asarray(dec[key]["kernel"])[::-1, ::-1]
+        sd[f"{D}.output_upscaling.{j}.weight"] = _w(k.transpose(2, 3, 0, 1))
+        sd[f"{D}.output_upscaling.{j}.bias"] = _w(dec[key]["bias"])
+    _norm(sd, f"{D}.output_upscaling.1", dec["upscale_ln"])
+    for i in range(sum(1 for k in dec if k.startswith("hypernet"))):
+        for j in range(3):
+            _linear(sd, f"{D}.output_hypernetworks_mlps.{i}.layers.{j}",
+                    dec[f"hypernet{i}"][f"layers{j}"])
+    for j in range(3):
+        _linear(sd, f"{D}.iou_prediction_head.layers.{j}", dec["iou_head"][f"layers{j}"])
+    return sd
+
+
+def nnet_from_flax(tree: dict) -> dict:
+    """State dict (scannet names) of ``nets.nnet.NNET`` from the JAX
+    package's {params, batch_stats} tree."""
+    sd: dict = {}
+    params, stats = tree["params"], tree["batch_stats"]
+    enc, enc_s = params["encoder"], stats["encoder"]
+    E = "encoder.original_model"
+    _conv(sd, f"{E}.conv_stem", enc["stem"]["conv"])
+    _norm(sd, f"{E}.bn1", enc["stem"]["bn"], enc_s["stem"]["bn"])
+    blocks = sorted((tuple(int(v) for v in k.split("_")[1:]), k)
+                    for k in enc if k.startswith("blocks_"))
+    for (si, bi), key in blocks:
+        p, s, b = enc[key], enc_s[key], f"{E}.blocks.{si}.{bi}"
+        _conv(sd, f"{b}.se.conv_reduce", p["se"]["conv_reduce"])
+        _conv(sd, f"{b}.se.conv_expand", p["se"]["conv_expand"])
+        _conv(sd, f"{b}.conv_dw", p["dw_conv"])
+        if si == 0:  # DepthwiseSeparable: conv_dw/bn1, se, conv_pw/bn2
+            _norm(sd, f"{b}.bn1", p["dw_bn"], s["dw_bn"])
+            _conv(sd, f"{b}.conv_pw", p["pw"]["conv"])
+            _norm(sd, f"{b}.bn2", p["pw"]["bn"], s["pw"]["bn"])
+        else:  # InvertedResidual: conv_pw/bn1, conv_dw/bn2, se, conv_pwl/bn3
+            _conv(sd, f"{b}.conv_pw", p["pw"]["conv"])
+            _norm(sd, f"{b}.bn1", p["pw"]["bn"], s["pw"]["bn"])
+            _norm(sd, f"{b}.bn2", p["dw_bn"], s["dw_bn"])
+            _conv(sd, f"{b}.conv_pwl", p["pwl"]["conv"])
+            _norm(sd, f"{b}.bn3", p["pwl"]["bn"], s["pwl"]["bn"])
+    _conv(sd, f"{E}.conv_head", enc["head_conv"])
+
+    D = "decoder"
+    _conv(sd, f"{D}.conv2", params["conv2"])
+    for up in ("up1", "up2", "up3", "up4"):
+        p, s = params[up], stats[up]
+        _conv(sd, f"{D}.{up}._net.0", p["conv0"])
+        _norm(sd, f"{D}.{up}._net.1", p["bn0"], s["bn0"])
+        _conv(sd, f"{D}.{up}._net.3", p["conv1"])
+        _norm(sd, f"{D}.{up}._net.4", p["bn1"], s["bn1"])
+    _conv(sd, f"{D}.out_conv_res8", params["out_conv_res8"])
+    for head in ("out_conv_res4", "out_conv_res2", "out_conv_res1"):
+        for j in range(4):
+            p = params[head][f"conv{j}"]
+            sd[f"{D}.{head}.{2 * j}.weight"] = _w(np.asarray(p["kernel"])[0, 0].T[:, :, None])
+            sd[f"{D}.{head}.{2 * j}.bias"] = _w(p["bias"])
+    return sd
+
+
+def nnet_state_dict(sd) -> dict:
+    """A published scannet state dict as ``nets.nnet.NNET`` loads it: the
+    ``module.`` prefix stripped, and without the encoder's bn2 (it feeds
+    only the removed classifier) and BatchNorm batch counters."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k.startswith("encoder.original_model.bn2.") or k.endswith("num_batches_tracked"):
+            continue
+        out[k] = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     return out

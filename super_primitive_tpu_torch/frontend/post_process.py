@@ -64,6 +64,8 @@ def split_disconnected_segments(
 
     rng = rng or np.random.default_rng(0)
     N, H, W = regions.shape
+    if N == 0:
+        return regions, logdepth_perseg, keypoints_rc
     with _stage("split_disc"):
         reg_t = torch.from_numpy(np.ascontiguousarray(regions, bool)).to(device)
         ld_t = torch.from_numpy(np.ascontiguousarray(logdepth_perseg, np.float32)).to(device)

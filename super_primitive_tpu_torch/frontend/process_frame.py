@@ -23,11 +23,23 @@ padding and gets the same result.
 Models are injected as callables:
   normals_fn(image_hwc01) -> (normals (H, W, 3), kappa (H, W, 1))
   mask_predict_fn(image_hwc_uint8, keypoints_norm) -> (logits (B,3,H,W), iou)
-or, for the device selection path, ``wire_mask_predictor(predictor)``.
+or, for the device selection path, ``wire_mask_predictor(predictor)``.  A
+``normals_fn`` with ``accepts_uint8`` set takes the uint8 image instead (the
+real NNET divides by 255 on the device), and a ``mask_predict_fn`` with a
+``preload`` starts the SAM frame's upload before the first round.
+:func:`build_frontend` and :func:`frontend_from_state_dicts` wire the real
+nets.
 
-The resizes are numpy replacements of the OpenCV calls the JAX package
-makes (``cv2.INTER_NEAREST`` and ``cv2.INTER_LINEAR``); the tests hold them
-against OpenCV.
+Precision: everything here is float32 except SAM in :func:`build_frontend`,
+which opts into bf16 (``SamPredictor(compute_dtype=torch.bfloat16)``): the
+ViT encoder (weights cast once, bf16 activations, tanh GELU, the explicit
+attention) and the mask decoder (weights, features, positional and prompt
+embeddings cast to bf16, tanh GELU in the upscaling head).  The prompt
+encoder, the logits handed to K3 and the IoU predictions are float32; the
+NNET runs in float32.
+
+The resizes are ``image/resize.py``'s numpy replacements of the OpenCV
+calls the JAX package makes.
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ import numpy as np
 import torch
 
 from ..config.schema import Config
+from ..convert import nnet_from_flax, nnet_state_dict, sam_from_flax
+from ..image.resize import linear_resize, nn_resize
 from ..integrate.bini import (
     BiniConfig,
     integrate_normals,
@@ -46,86 +60,15 @@ from ..integrate.bini import (
     segment_bbox_sizes,
 )
 from ..keyframe import put_keypoints_back
+from ..nets.nnet import NNET, predict_normals
+from ..nets.sam.image_encoder import config_from_state_dict
+from ..nets.sam.predictor import SamPredictor
 from .mask_generation import infer_masks
 from .post_process import split_disconnected_segments
 
 # Crop-size buckets for the per-segment BiNI solve, smallest first: each
 # segment routes to the smallest window its bbox fits (else the full field).
 CROP_BUCKETS = (32, 64, 128)
-
-
-def _nearest_index(dst: int, src: int) -> np.ndarray:
-    """cv2.INTER_NEAREST source index of each destination index:
-    floor(i * (1 / (dst / src))) in double, clipped to the last pixel."""
-    ifx = 1.0 / (dst / src)
-    return np.minimum(np.floor(np.arange(dst) * ifx).astype(np.int64), src - 1)
-
-
-def nn_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """Nearest-neighbour resize with cv2.INTER_NEAREST semantics on (H, W),
-    (H, W, C<=4) or leading-batch (N, H, W) arrays."""
-    H, W = hw
-    batch = not (x.ndim == 2 or (x.ndim == 3 and x.shape[-1] <= 4))
-    src_hw = x.shape[-2:] if batch else x.shape[:2]
-    if tuple(src_hw) == (H, W):
-        return x
-    ri = _nearest_index(H, src_hw[0])
-    ci = _nearest_index(W, src_hw[1])
-    if batch:
-        return x[:, ri[:, None], ci[None, :]]
-    return x[ri[:, None], ci[None, :]]
-
-
-def _linear_taps(dst: int, src: int, clamp_weight: bool):
-    """Half-pixel-centre source taps and the weight of the second tap, as
-    cv2.resize computes them: the column weights are zeroed at the borders,
-    the row weights are not (their taps are clipped instead)."""
-    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
-    s = np.floor(f).astype(np.int64)
-    f = f - s
-    if clamp_weight:
-        f = np.where(s < 0, 0.0, f)
-        s = np.where(s < 0, 0, s)
-        edge = s >= src - 1
-        f = np.where(edge, 0.0, f)
-        s = np.where(edge, src - 1, s)
-    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f.astype(np.float32)
-
-
-def linear_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of an (H, W, C) uint8 or float32 image with
-    cv2.INTER_LINEAR semantics.
-
-    An exact 2x reduction is a 2x2 mean, as OpenCV takes it; uint8 rounds it
-    half up.  Other ratios use OpenCV's separable taps: uint8 with its 11-bit
-    fixed-point weights and its vectorised rounding, float32 in float32."""
-    H, W = hw
-    Hs, Ws = x.shape[:2]
-    if (Hs, Ws) == (H, W):
-        return x.copy()
-    if Hs == 2 * H and Ws == 2 * W:
-        a, b = x[0::2, 0::2], x[0::2, 1::2]
-        c, d = x[1::2, 0::2], x[1::2, 1::2]
-        if x.dtype == np.uint8:
-            s = a.astype(np.int32) + b + c + d
-            return ((s + 2) >> 2).astype(np.uint8)
-        return ((a + b) + (c + d)) * np.float32(0.25)
-    sy, sy1, fy = _linear_taps(H, Hs, clamp_weight=False)
-    sx, sx1, fx = _linear_taps(W, Ws, clamp_weight=True)
-    if x.dtype == np.uint8:
-        one = 2048  # 1 << INTER_RESIZE_COEF_BITS
-        ax0 = np.round((1.0 - fx) * one).astype(np.int64)[None, :, None]
-        ay0 = np.round((1.0 - fy) * one).astype(np.int64)[:, None, None]
-        xi = x.astype(np.int64)
-        hor = xi[:, sx] * ax0 + xi[:, sx1] * (one - ax0)
-        out = (
-            (((hor[sy] >> 4) * ay0) >> 16) + (((hor[sy1] >> 4) * (one - ay0)) >> 16) + 2
-        ) >> 2
-        return np.clip(out, 0, 255).astype(np.uint8)
-    wx = fx[None, :, None]
-    wy = fy[:, None, None]
-    hor = x[:, sx] * (1.0 - wx) + x[:, sx1] * wx
-    return (hor[sy] * (1.0 - wy) + hor[sy1] * wy).astype(np.float32)
 
 
 def scale_K(K: np.ndarray, scale_h: float, scale_w: float) -> np.ndarray:
@@ -173,7 +116,8 @@ class FrontProcessor:
         # 1. normals, brought to the integration shape
         img01 = image.astype(np.float32) / 255.0
         with self._stage("normals"):
-            normals, _ = self.normals_fn(img01)
+            normals, _ = self.normals_fn(
+                image if getattr(self.normals_fn, "accepts_uint8", False) else img01)
             normals = normals.cpu().numpy() if torch.is_tensor(normals) else np.asarray(normals)
             if normals.shape[:2] != (Hg, Wg):
                 normals = nn_resize(normals, (Hg, Wg))
@@ -187,6 +131,9 @@ class FrontProcessor:
         sam_params = self.config.sam_params
         sam_hw = sam_params.infer_resolution
         sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
+        preload = getattr(self.mask_predict_fn, "preload", None)
+        if preload is not None:
+            preload(sam_img)
         overlap = not sam_params.cut_masks_by_edges
         r1_handle = []
 
@@ -365,7 +312,9 @@ def wire_mask_predictor(predictor):
 
     Returns ``mask_predict_fn`` (the statistics path) with ``.select_round``
     attached: one selection round with NMS on the device, plus its two-phase
-    ``dispatch`` / ``finish`` protocol, the contract ``infer_masks`` keys on.
+    ``dispatch`` / ``finish`` protocol, the contract ``infer_masks`` keys on;
+    ``.predictor`` is the predictor, and ``.preload`` its
+    ``preload_image`` where it has one.
     """
 
     def _to_input_xy(image_uint8, kps_norm):
@@ -411,4 +360,45 @@ def wire_mask_predictor(predictor):
     select_round.dispatch = _select_dispatch
     select_round.finish = _select_finish
     mask_predict_fn.select_round = select_round
+    mask_predict_fn.predictor = predictor
+    preload = getattr(predictor, "preload_image", None)
+    if preload is not None:
+        mask_predict_fn.preload = preload
     return mask_predict_fn
+
+
+def build_frontend(config: Config, sam_tree: dict, nnet_tree: dict,
+                   device: str | torch.device = "cuda") -> FrontProcessor:
+    """A FrontProcessor on the real nets, from the JAX package's converted
+    parameter trees (``convert.load_npz_tree`` of the ``.npz`` files); see
+    :func:`frontend_from_state_dicts`."""
+    if sam_tree is None or nnet_tree is None:
+        raise ValueError("SAM and NNET parameter trees are both required")
+    return frontend_from_state_dicts(config, sam_from_flax(sam_tree), nnet_from_flax(nnet_tree),
+                                     device)
+
+
+def frontend_from_state_dicts(config: Config, sam_sd: dict, nnet_sd: dict,
+                              device: str | torch.device = "cuda") -> FrontProcessor:
+    """A FrontProcessor on the real nets from state dicts in the published
+    names (segment-anything, scannet).
+
+    SAM runs in bf16 (see the module docstring) through the device
+    selection path; the NNET in float32, with the nearest subsample to the
+    integration shape on the device when ``include_normals`` is off.  The
+    ViT configuration is the one the SAM state dict's shapes give."""
+    device = torch.device(device)
+    predictor = SamPredictor(sam_sd, config_from_state_dict(sam_sd),
+                             compute_dtype=torch.bfloat16, device=device)
+    nnet = NNET()
+    nnet.load_state_dict(nnet_state_dict(nnet_sd))
+    nnet = nnet.to(device).eval().requires_grad_(False)
+    fc = config.frontend
+    coarse = None if fc.include_normals else tuple(fc.normals.integration_shape)
+
+    def normals_fn(img):
+        return predict_normals(nnet, img, tuple(fc.normals.network_dim), coarse_hw=coarse)
+
+    normals_fn.accepts_uint8 = True
+    normals_fn.model = nnet
+    return FrontProcessor(config, normals_fn, wire_mask_predictor(predictor), device=device)

@@ -1,1 +1,2 @@
-"""Network-side code of the PyTorch port (the SAM selection half)."""
+"""The port's networks: SAM (encoder, prompt encoder, decoder, predictor)
+and the EfficientNet-B5 normal net NNET."""

@@ -1,1 +1,2 @@
-"""SAM point-prompt selection on the device."""
+"""Segment Anything: the ViT encoder, prompt encoder and mask decoder, and
+the predictor with its selection on the device."""

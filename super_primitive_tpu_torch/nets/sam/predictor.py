@@ -1,32 +1,54 @@
-"""SAM prompt rounds with the selection on the device (the predictor's
-selection half).
+"""SAM predictor: encode an image once, decode point prompts, and select
+masks on the device.
 
-Port of the selection half of ``super_primitive_tpu/nets/sam/predictor.py``:
-from (B, M, S, S) low-res mask logits and (B, M) IoU predictions, the
-full-resolution stability and area of every candidate come from kernel K3
-(``ops/phase_counts.py``, the phase decomposition of the bilinear
-upsample), then the amg smallest-good pick, the picked masks bit-packed
-MSB-first, their xyxy boxes, greedy box NMS, and the survivors left packed
-on the device (:class:`DeferredMasks`) until a caller needs them.
+Port of ``super_primitive_tpu/nets/sam/predictor.py``.
 
-:class:`PromptRounds` holds the four prompt-round methods.  A subclass
-supplies the decode (``_decode_select`` / ``_decode_stats``) and the image
-state; ``frontend/fakes.DeviceFakeSAM`` is the one this package has (the
-real SAM encoder and decoder are not ported yet).
+The encode and decode half (:class:`Sam`, :class:`SamPredictor`): resize
+the longest side to ``target_length`` (cv2 INTER_LINEAR semantics, by
+``image/resize.linear_resize``), normalise with ``PIXEL_MEAN`` /
+``PIXEL_STD``, zero-pad to a square, encode with the ViT; then per prompt
+the prompt encoder (one positive point and the label -1 pad point SAM
+appends when there is no box) and the mask decoder give 4 low-res mask
+logits, of which mask 0 is dropped (multimask output).  With
+``compute_dtype=torch.bfloat16`` the encoder and the decoder run in bf16
+with tanh GELU (their weights cast once), the prompt encoder and every
+output stay float32.
+
+The selection half: from (B, M, S, S) low-res mask logits and (B, M) IoU
+predictions, the full-resolution stability and area of every candidate
+come from kernel K3 (``ops/phase_counts.py``, the phase decomposition of
+the bilinear upsample), then the amg smallest-good pick, the picked masks
+bit-packed MSB-first, their xyxy boxes, greedy box NMS, and the survivors
+left packed on the device (:class:`DeferredMasks`) until a caller needs
+them.  :class:`PromptRounds` holds the four prompt-round methods over a
+subclass's decode: :class:`SamPredictor` here, ``frontend/fakes.
+DeviceFakeSAM`` on structured fake logits.
 
 Unlike the JAX package, a round decodes all its prompts in one batch (no
 padding to a fixed chunk: PyTorch compiles nothing per shape), and the
 greedy NMS walks its order on the host over one fetched (C, C) overlap
-matrix.  Both change no output.
+matrix.  Both change no output.  Not ported: ``predict_batched_points``,
+``postprocess_masks`` and statistics at ``out_size != S``, which need
+``jax.image.resize`` semantics and which no frontend path takes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
+from ...image.resize import linear_resize
 from ...ops import phase_counts as k3
+from .image_encoder import VIT_H, ImageEncoderViT, ViTConfig
+from .mask_decoder import MaskDecoder
+from .prompt_encoder import PromptEncoder
 
+PIXEL_MEAN = (123.675, 116.28, 103.53)
+PIXEL_STD = (58.395, 57.12, 57.375)
 MASK_THRESHOLD = 0.0
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
@@ -321,3 +343,139 @@ class PromptRounds:
                 cov = _unpackbits_lastaxis(coverage_packed)
                 out["coverage"] = cov[:hs, :ws].cpu().numpy()
         return out
+
+
+class Sam(nn.Module):
+    """The three SAM networks under their published segment-anything names
+    (``image_encoder``, ``prompt_encoder``, ``mask_decoder``)."""
+
+    def __init__(self, cfg: ViTConfig = VIT_H):
+        super().__init__()
+        S = cfg.img_size // cfg.patch_size
+        self.image_encoder = ImageEncoderViT(cfg)
+        self.prompt_encoder = PromptEncoder(cfg.out_chans, (S, S), (cfg.img_size, cfg.img_size))
+        self.mask_decoder = MaskDecoder(cfg.out_chans, gelu_approx=cfg.gelu_approx)
+
+
+def build_sam(params, cfg: ViTConfig, device) -> Sam:
+    """A :class:`Sam` on ``device`` holding ``params`` (a state dict, numpy
+    or tensors, in the published names; every key must be there), in
+    inference mode (no gradients)."""
+    with torch.device("meta"):
+        model = Sam(cfg)
+    model.load_state_dict(
+        {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+         .to(device=device, dtype=torch.float32, copy=True) for k, v in params.items()},
+        assign=True)
+    return model.eval().requires_grad_(False)
+
+
+def decode_prompts(prompt_encoder: PromptEncoder, mask_decoder: MaskDecoder,
+                   features: torch.Tensor, image_pe: torch.Tensor, pts: torch.Tensor,
+                   compute_dtype=None):
+    """Single positive point prompts (B, 2) float32 (x, y) in input-frame
+    pixels, each with SAM's label -1 pad point, on (1, S, S, C) image
+    features -> (masks (B, 4, 4S, 4S), iou (B, 4)) float32.  With
+    ``compute_dtype`` the decoder (already cast to it) runs on the features,
+    positional encoding and prompt embeddings cast to it."""
+    B = pts.shape[0]
+    coords = torch.stack([pts, torch.zeros_like(pts)], dim=1)
+    labels = torch.tensor([1.0, -1.0], device=pts.device).expand(B, 2)
+    sparse, dense = prompt_encoder(coords, labels)
+    if compute_dtype is not None:
+        features, image_pe, sparse, dense = (
+            t.to(compute_dtype) for t in (features, image_pe, sparse, dense))
+    masks, iou = mask_decoder(features, image_pe, sparse, dense)
+    return masks.float(), iou.float()
+
+
+class SamPredictor(PromptRounds):
+    """Holds the SAM networks on ``device`` and the features of the image
+    last set; stateful per image, like the reference predictor.
+
+    ``params``: a segment-anything state dict (``convert.sam_from_flax`` of
+    the JAX package's tree, or ``nets/synth.synth_sam_state_dict``).
+    ``compute_dtype``: None keeps float32 with exact GELU (the parity
+    path); ``torch.bfloat16`` casts the encoder and decoder weights once
+    and runs them in bf16 with tanh GELU."""
+
+    def __init__(self, params, cfg: ViTConfig = VIT_H, compute_dtype=None,
+                 device: str | torch.device = "cuda"):
+        if compute_dtype is not None:
+            cfg = dataclasses.replace(cfg, gelu_approx=True)
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.device = torch.device(device)
+        self.model = build_sam(params, cfg, self.device)
+        if compute_dtype is not None:
+            self.model.image_encoder.to(compute_dtype)
+            self.model.mask_decoder.to(compute_dtype)
+        self.target_length = cfg.img_size
+        self._image_pe = self.model.prompt_encoder.get_dense_pe()
+        self._mean = torch.tensor(PIXEL_MEAN, device=self.device)
+        self._std = torch.tensor(PIXEL_STD, device=self.device)
+        self._features = None
+        self._input_hw = None
+        self._last_image = None
+        self._preload = None
+
+    # -------------------------------------------------------------- image
+    def _upload(self, image_hwc_uint8: np.ndarray):
+        """(resized uint8 (h2, w2, 3) on the device, (h2, w2)); a pinned,
+        non-blocking copy to a card."""
+        H, W = image_hwc_uint8.shape[:2]
+        h2, w2 = get_preprocess_shape(H, W, self.target_length)
+        host = torch.from_numpy(linear_resize(np.asarray(image_hwc_uint8), (h2, w2)))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True), (h2, w2)
+
+    def preload_image(self, image_hwc_uint8: np.ndarray):
+        """Resize and start the upload without encoding; the next
+        ``set_image`` of the same array object consumes it."""
+        if self._last_image is image_hwc_uint8 or (
+                self._preload is not None and self._preload[0] is image_hwc_uint8):
+            return
+        self._preload = (image_hwc_uint8, *self._upload(image_hwc_uint8))
+
+    def encode(self, img_u8: torch.Tensor) -> torch.Tensor:
+        """(h2, w2, 3) uint8 on the device -> (1, S, S, C) float32 features:
+        normalise, zero-pad to the square input, encode."""
+        T = self.target_length
+        x = (img_u8.float() - self._mean) / self._std
+        x = F.pad(x, (0, 0, 0, T - x.shape[1], 0, T - x.shape[0]))[None]
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return self.model.image_encoder(x).float()
+
+    def set_image(self, image_hwc_uint8: np.ndarray):
+        """Resize the longest side, normalise, pad and encode.  Setting the
+        same array object twice in a row encodes once (the two prompt rounds
+        of a keyframe share the image)."""
+        if self._features is not None and self._last_image is image_hwc_uint8:
+            return
+        pre, self._preload = self._preload, None
+        if pre is not None and pre[0] is image_hwc_uint8:
+            dev, hw = pre[1], pre[2]
+        else:
+            dev, hw = self._upload(image_hwc_uint8)
+        self._features = self.encode(dev)
+        self._last_image = image_hwc_uint8
+        self._input_hw = hw
+
+    # ------------------------------------------------------------- decode
+    def _decode(self, pts: torch.Tensor):
+        if self._features is None:
+            raise RuntimeError("call set_image first")
+        return decode_prompts(self.model.prompt_encoder, self.model.mask_decoder,
+                              self._features, self._image_pe, pts, self.compute_dtype)
+
+    def _decode_stats(self, pts, input_hw, out_size):
+        lowres, iou = self._decode(pts)
+        return stats_from_lowres(lowres[:, 1:], iou[:, 1:], input_hw, out_size,
+                                 self.target_length)
+
+    def _decode_select(self, pts, input_hw, out_size, iou_thr, stab_thr):
+        lowres, iou = self._decode(pts)
+        return select_from_lowres(lowres[:, 1:], iou[:, 1:], input_hw, out_size, iou_thr,
+                                  stab_thr, self.target_length)

@@ -6,6 +6,8 @@ Mirrors the repository's ``run_sfm.py``:
     python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml --stub-frontend
     python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml --fake-frontend --odom \
         [--max-frames N]
+    python -m super_primitive_tpu_torch.run_sfm --config CFG.yaml \
+        --sam-ckpt sam.npz --nnet-ckpt nnet.npz [--odom]
 
 It runs on the card (``--device cuda``, the default) and raises if there is
 none; ``--device cpu`` runs the same code on the CPU with the kernels' plain
@@ -17,7 +19,10 @@ SfM writes ``two_frame_result.npz`` under the config's ``save_path``.
 and writes ``converted_tum_traj.txt`` and ``converted_gt_tum_traj.txt``
 there, and prints the Sim(3) ATE of the keyframe trajectory.  With
 ``--fake-frontend`` odometry takes the device SAM selection
-(``DeviceFakeSAM``); two-frame SfM keeps the host FakeSAM.
+(``DeviceFakeSAM``); two-frame SfM keeps the host FakeSAM.  With
+``--sam-ckpt`` and ``--nnet-ckpt`` (the ``.npz`` trees that
+``convert_checkpoints.py`` writes) both take the real SAM and NNET
+(``frontend.process_frame.build_frontend``).
 """
 
 from __future__ import annotations
@@ -77,10 +82,14 @@ def build_frontend(args, config, device, device_sam: bool = False):
 
         return StructuredFakeFrontend(config, n_cells=64, device=device,
                                       device_sam=device_sam)
-    raise NotImplementedError(
-        "the SAM ViT-H / EfficientNet-B5 frontend is not ported yet (ROADMAP.md, "
-        "queue 1, item 8); use --fake-frontend or --stub-frontend"
-    )
+    if not (args.sam_ckpt and args.nnet_ckpt):
+        raise ValueError("pass --sam-ckpt and --nnet-ckpt (converted .npz trees), "
+                         "--fake-frontend or --stub-frontend")
+    from .convert import load_npz_tree
+    from .frontend.process_frame import build_frontend as build_real_frontend
+
+    return build_real_frontend(config, load_npz_tree(args.sam_ckpt),
+                               load_npz_tree(args.nnet_ckpt), device=device)
 
 
 def make_pyramids(config, kf_data: dict, supp: dict, device):
@@ -212,18 +221,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--odom", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)
-    ap.add_argument("--sam-ckpt", default=None)
-    ap.add_argument("--nnet-ckpt", default=None)
+    ap.add_argument("--sam-ckpt", default=None, help=".npz converted SAM tree")
+    ap.add_argument("--nnet-ckpt", default=None, help=".npz converted NNET tree")
     ap.add_argument("--stub-frontend", action="store_true")
     ap.add_argument("--stub-rows", type=int, default=6)
     ap.add_argument("--stub-cols", type=int, default=8)
     ap.add_argument("--fake-frontend", action="store_true",
                     help="the structured fake SAM/NNET through the real frontend")
     args = ap.parse_args(argv)
-    if args.sam_ckpt or args.nnet_ckpt:
-        raise NotImplementedError(
-            "the SAM / NNET checkpoints are not ported yet (ROADMAP.md, queue 1, item 8)"
-        )
 
     device = require_device(args.device)
     config = load_config(args.config)

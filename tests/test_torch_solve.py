@@ -278,6 +278,7 @@ class TestTwoFrameSlice:
             trun.main(["--config", str(cfg), "--odom", "--device", "cpu"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trun.main(["--config", str(cfg), "--device", "cpu", "--fake-frontend"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trun.build_frontend(trun.argparse.Namespace(stub_frontend=False, fake_frontend=False),
+        with pytest.raises(ValueError, match="--sam-ckpt and --nnet-ckpt"):
+            trun.build_frontend(trun.argparse.Namespace(stub_frontend=False, fake_frontend=False,
+                                                        sam_ckpt="sam.npz", nnet_ckpt=None),
                                 tload_config(str(cfg)), "cpu")

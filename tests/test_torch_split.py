@@ -102,6 +102,19 @@ def test_split_inherently_disconnected_no_disc():
         np.testing.assert_array_equal(a, b)
 
 
+def test_split_no_segments():
+    """A keyframe whose every segment came out empty reaches the split with
+    none; like JAX's, the split returns the empty stacks (it used to fail
+    padding a zero-segment batch)."""
+    regions = np.zeros((0, 24, 32), bool)
+    logdepth = np.zeros((0, 24, 32), np.float32)
+    kp = np.zeros((0, 2), np.int64)
+    got = tpost.split_disconnected_segments(regions, logdepth, kp, device="cpu")
+    want = jpost.split_disconnected_segments(regions, logdepth, kp)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
 def frontend_cfg(load_config, disc):
     return load_config({
         "save_path": "unused",
