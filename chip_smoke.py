@@ -21,14 +21,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      K1-per-iteration route, against the plain route;
   5. the two-frame slice: two-frame SfM on the synthetic planes sequence at
      480x640 through the structured fake frontend, which integrates on K2;
+  5b. the same problem with ``mapping.solver: gn`` (``solve_two_frame_gn``):
+     the scale-aligned pose error cut 3x (two views leave the scale free);
+     the solve s beside phase 5's and each level's (initial, final) cost;
   6. at 96x128 the card agrees with the CPU: the frontend's keyframe (also
      with the device SAM selection and the depth split), and the
-     photometric cost and its gradients at the solve's init;
+     photometric cost and its gradients at the solve's init; on the GN
+     path, ``gn_track``, ``assemble`` + ``solve_step``, the GN supp
+     refinement and ``fused_frame_step`` within ``GN_TOL``, and two
+     ``assemble`` calls on the card bit for bit;
   7. the VO slice: ``eval.e2e_synthetic.run_e2e("adam")`` at full width on
      the card (480x640 frames, the device SAM selection on K3, BiNI on K2,
      the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05;
      the share of K3's region pixels that its shortcut leaves to the full
      16-phase path on the path's inputs;
+  7b. the GN VO slice: ``run_e2e("gn")`` at full width, at least 2
+     keyframes, a Sim(3) ATE below 0.05, K2 and K3 launched, the fused step
+     taken and no separate supp mapping, every pose finite; wall s, ms per
+     tracked frame, the fused step's split, LM iterations, host reads per
+     fused frame beside phase 7's numbers; K2 and K3 against their plain
+     versions on the path's inputs phase 7 did not see; one GN track call's
+     and one ``assemble``'s device busy time and idle share;
   8. the real nets at full width, on seeded synthetic weights in the
      published names (``nets/synth.py``): SAM ViT-H and the EfficientNet-B5
      NNET, loaded with ``load_state_dict`` into the frontend of
@@ -45,9 +58,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      through the same frontend; K3 (exact) and K2 on the real decoder's and
      BiNI's recorded inputs; encoder, decode, selection and NNET times.
 
-Launch counts are reset just before the paths of phases 4, 5, 7 and 8 and
-read just after; a kernel of a path that was not launched there fails the
-run.
+Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b
+and 8 and read just after; a kernel of a path that was not launched there
+fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it, and after the path each kernel is checked and timed on them.
 It prints one ``{"kernels": [...]}`` line with each kernel's error, times
@@ -515,7 +528,7 @@ def check_bini_480(torch, bini, stencil):
     return launches, rows
 
 
-def slice_config(H, W, small=False, disc=False):
+def slice_config(H, W, small=False, disc=False, solver="adam"):
     from super_primitive_tpu_torch.config import load_config
 
     return load_config({
@@ -531,7 +544,8 @@ def slice_config(H, W, small=False, disc=False):
             "check_for_depth_disc": disc,
         },
         "sam_params": {"infer_resolution": [H, W] if small else [H // 2, W // 2]},
-        "alignment": {"pyramid_min": 0, "pyramid_max": 2 if small else 4},
+        "alignment": {"pyramid_min": 0, "pyramid_max": 2 if small else 4,
+                      "mapping": {"solver": solver}},
     })
 
 
@@ -567,7 +581,71 @@ def run_slice(torch, stencil):
     if not (math.isfinite(r["final_loss"]) and drop >= 3.0):
         fail("the slice did not cut the pose error 3x")
     rows = [k2_row(torch, stencil, *args) for args in path_inputs.values()]
-    return launches, rows
+    return launches, rows, r
+
+
+def scale_aligned_err(torch, T, T_gt) -> float:
+    """|log(T_gt^-1 T')| with T's translation rescaled to the ground
+    truth's length: the pose error that two views can observe (two-frame
+    SfM leaves the scale of depth and translation free)."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.lie import se3
+
+    T = np.asarray(T, np.float64).copy()
+    T[:3, 3] *= np.linalg.norm(T_gt[:3, 3]) / max(np.linalg.norm(T[:3, 3]), 1e-12)
+    rel = np.linalg.inv(np.asarray(T_gt, np.float64)) @ T
+    return float(torch.linalg.norm(se3.log(torch.from_numpy(rel.astype(np.float32)))))
+
+
+def run_slice_gn(torch, stencil, k3, adam: dict):
+    """Phase 5b: phase 5's two-frame problem with ``mapping.solver: gn``
+    (``solve_two_frame_gn``, 30 LM iterations a level).  It must cut the
+    scale-aligned pose error 3x; the raw |log| error is reported, not held:
+    it is mostly the translation's scale, which two views leave free and the
+    random depth seeds set, and GN moves along that direction where Adam's
+    small depth rate barely does."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.data.synthetic import PlanesSequence
+    from super_primitive_tpu_torch.frontend.fakes import StructuredFakeFrontend
+    from super_primitive_tpu_torch.run_sfm import run_two_frame
+
+    cfg = slice_config(480, 640, solver="gn")
+    ds = PlanesSequence(n_frames=5, H=480, W=640, path="linear")
+    fe = StructuredFakeFrontend(cfg, n_cells=64, device="cuda")
+    stencil.reset_launch_counts()
+    k3.reset_launch_counts()
+    r = run_two_frame(cfg, fe, ds, device="cuda")
+    launches = {**stencil.launch_counts, **k3.launch_counts}
+    if r["solver"] != "gn":
+        fail(f"run_two_frame took {r['solver']} for mapping.solver: gn")
+    aligned = {k: scale_aligned_err(torch, r[k], r["T_rel_gt"]) for k in ("T_init", "pose")}
+    adam_aligned = scale_aligned_err(torch, adam["pose"], adam["T_rel_gt"])
+    drop = aligned["T_init"] / max(aligned["pose"], 1e-12)
+    levels = [tuple(float(c) for c in l) for l in r["losses"]]
+    summary = {"segments": r["num_segments"], "launches": launches,
+               "solve_s": r["solve_s"], "adam_solve_s": adam["solve_s"],
+               "level_costs": levels, "pose_err_init": r["pose_err_init"],
+               "pose_err_final": r["pose_err_final"],
+               "adam_pose_err_final": adam["pose_err_final"],
+               "aligned_err_init": aligned["T_init"], "aligned_err_final": aligned["pose"],
+               "adam_aligned_err_final": adam_aligned}
+    print(f"slice 480x640 GN: {r['num_segments']} segments, K2 launches {launches['bini_cg']}; "
+          f"solve {r['solve_s']:.2f} s (Adam {adam['solve_s']:.2f} s); level costs (initial, "
+          f"final) {[(round(a, 6), round(b, 6)) for a, b in levels]}; pose err |log| "
+          f"{r['pose_err_init']:.5f} -> {r['pose_err_final']:.5f} (Adam "
+          f"{adam['pose_err_final']:.5f}); scale-aligned {aligned['T_init']:.5f} -> "
+          f"{aligned['pose']:.5f} ({drop:.1f}x; Adam {adam_aligned:.5f})", flush=True)
+    if launches["bini_cg"] == 0:
+        fail("the GN two-frame slice launched no K2")
+    if r["pose"].shape != (4, 4) or not np.isfinite(r["pose"]).all():
+        fail("the GN slice's pose is not a finite 4x4 matrix")
+    if not np.isfinite(r["kp_logdepth"]).all():
+        fail("the GN slice's depths are not finite")
+    if drop < 3.0:
+        fail("the GN slice did not cut the scale-aligned pose error 3x")
+    return launches, summary
 
 
 def small_input_agreement(torch):
@@ -638,6 +716,183 @@ def small_input_agreement(torch):
         fail("the card disagrees with the CPU on the small input")
 
 
+# phase 6's GN checks, card against CPU: the bounds tests/test_torch_gn.py
+# holds the port to against JAX on the CPU, but for a track's cost after a
+# fixed LM budget (25 iterations that do not converge at 96x128): one ulp of
+# the start pose's translation moves it by 6.5e-5 relative on the CPU, so
+# its bound is 2e-4 (the CPU tests' problems converge, 1e-5)
+GN_TOL = {"pose": 1e-4, "cost_rel": 1e-5, "final_cost_rel": 2e-4, "H": 5e-4, "g_t": 5e-5,
+          "D": 5e-4, "gl": 5e-5, "Bs": 5e-4, "step": 1e-4, "logdepth": 5e-4,
+          "gate_rel": 1e-4, "affine": 1e-6}
+
+
+def gn_windows(torch, ds):
+    """The window of tests/test_torch_gn.py at 96x128 on the card and on the
+    CPU: keyframes 0, 3, 6 from the GT-depth grid stub (3x4 segments), one
+    supporting frame each (the next frame, at its true pose), keyframes 1
+    and 2 with seeded pose and log-depth perturbations."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.frontend.stub import GridSegmentFrontend
+    from super_primitive_tpu_torch.keyframe import build_bundle_np
+    from super_primitive_tpu_torch.lie import se3
+    from super_primitive_tpu_torch.odometry import window as win
+
+    r = np.random.default_rng(0)
+    fe = GridSegmentFrontend(rows=3, cols=4)
+    slots = []
+    for slot, fid in enumerate((0, 3, 6)):
+        fe.observe(ds[fid])
+        kf = fe.process_to_kf(ds[fid]["image"], ds[fid]["intrinsics"])
+        n = kf["regions"].shape[0]
+        kp_base = kf["logdepth_perseg"][np.arange(n), kf["keypoints_rc"][:, 0],
+                                        kf["keypoints_rc"][:, 1]]
+        pose, kp_ld = np.asarray(ds[fid]["T"], np.float32), kp_base.copy()
+        if slot > 0:
+            xi = torch.from_numpy((0.01 * r.normal(size=6)).astype(np.float32))
+            pose = se3.retract(torch.from_numpy(pose), xi).numpy()
+            kp_ld = kp_base + r.normal(0, 0.02, n).astype(np.float32)
+        slots.append((kf, pose, kp_ld, kp_base, ds[fid + 1]))
+    H, W = slots[0][0]["image"].shape[:2]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        w = win.empty_window(3, 2, (H, W), 3, 16, 2 * H * W, device=dev)
+        for slot, (kf, pose, kp_ld, kp_base, supp) in enumerate(slots):
+            bundle = build_bundle_np(kf["regions"], kf["logdepth_perseg"], capacity=2 * H * W,
+                                     device=dev)
+            win.set_keyframe_slot(w, slot, kf["image"], kf["K"], pose, kp_ld,
+                                  np.zeros(2, np.float32), bundle, kp_base)
+            img = torch.from_numpy(np.asarray(supp["image"], np.float32)).to(dev)
+            win.set_supporting_slot(w, slot, 0, img, supp["T"], np.zeros(2, np.float32))
+        out[dev] = w
+    return out
+
+
+def gn_card_vs_cpu(torch):
+    """Phase 6, the GN path: at 96x128 the card agrees with the CPU on
+    ``gn_track`` (one level), one ``assemble`` plus ``solve_step``,
+    ``run_supp_refinement_gn`` and ``fused_frame_step`` within ``GN_TOL``;
+    and two ``assemble`` calls on the card agree bit for bit (the landmark
+    segment sums take a fixed order)."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.cost import photometric as ph
+    from super_primitive_tpu_torch.data.synthetic import PlanesSequence
+    from super_primitive_tpu_torch.lie import se3
+    from super_primitive_tpu_torch.odometry import mapper
+    from super_primitive_tpu_torch.odometry.fused_step import fused_frame_step
+    from super_primitive_tpu_torch.solve import gauss_newton as gn
+    from super_primitive_tpu_torch.solve import gn_mapping as gm
+
+    ds = PlanesSequence(n_frames=9, H=96, W=128, path="linear")
+    wins = gn_windows(torch, ds)
+    geo = tuple(wins["cpu"].images.shape[1:3])
+    errs, iters = {}, {}
+
+    def pose_err(A, B):
+        rel = torch.linalg.inv(A.cpu().double()) @ B.cpu().double()
+        return float(torch.linalg.norm(se3.log(rel.float())))
+
+    def rel_max(a, b):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
+
+    # gn_track: keyframe 0 against frame 2 from a perturbed start
+    T_init = se3.retract(torch.from_numpy(ds[2]["T"]),
+                         torch.tensor([0.01, -0.015, 0.01, -0.02, 0.03, 0.02]))
+    R0 = torch.linalg.inv(T_init) @ wins["cpu"].poses[0]
+    trg = torch.from_numpy(np.asarray(ds[2]["image"], np.float32))
+    track = {}
+    for dev, w in wins.items():
+        b = w.bundle_at(0)
+        src = ph.precompute_source(w.images[0], b, geo)
+        z = torch.zeros(2, device=dev)
+        track[dev] = gn.gn_track(b, src, trg.to(dev), w.K[0], w.kp_logdepth[0], w.kp_base[0],
+                                 R0.to(dev), z, z, geo, max_iters=25)
+    iters["track"] = {d: r.num_iters for d, r in track.items()}
+    errs["track_pose"] = pose_err(track["cuda"].R, track["cpu"].R)
+    for k in ("initial_cost", "final_cost"):
+        errs[f"track_{k}_rel"] = abs(float(getattr(track["cuda"], k))
+                                     / float(getattr(track["cpu"], k)) - 1)
+
+    # one assemble and solve_step on the window's 'map' problem
+    supp_valid = wins["cpu"].supp_valid.numpy()
+    slots = mapper.build_slots(3, 3, supp_valid, "map")
+    masks = mapper.build_masks(3, 3, supp_valid, "map", 3, False, False)
+    pm = np.concatenate([np.repeat(masks.xi_mask, 6), np.repeat(masks.affine_mask, 2)])
+
+    def assemble(w):
+        return gm.assemble(w, slots.trg_index, slots.trg_valid, slots.src_valid,
+                           torch.from_numpy(pm).to(w.images.device), geo, False, w.pose_pool(),
+                           w.kp_logdepth, w.affine_pool())
+
+    lin = {dev: assemble(w) for dev, w in wins.items()}
+    again = assemble(wins["cuda"])
+    deterministic = all(torch.equal(a, b) for a, b in zip(lin["cuda"], again))
+    for k, name in enumerate(("H", "g_t", "D", "gl", "Bs")):
+        errs[name] = rel_max(lin["cuda"][k], lin["cpu"][k])
+    errs["assemble_cost_rel"] = rel_max(lin["cuda"][5], lin["cpu"][5])
+    ld_w = (torch.from_numpy(masks.ld_mask)[:, None]
+            * wins["cpu"].kf_valid.float()[:, None]).expand(3, 16)
+    cmap = torch.from_numpy(gm.build_cmap(slots.trg_index, 9))
+    steps = {dev: gm.solve_step(*(x.to(dev) for x in lin["cpu"][:5]),
+                                torch.tensor(1e-3, device=dev), ld_w.to(dev),
+                                torch.from_numpy(pm).to(dev), cmap.to(dev))
+             for dev in ("cuda", "cpu")}
+    errs["step"] = max(rel_max(a, b) for a, b in zip(steps["cuda"], steps["cpu"]))
+
+    # GN supp refinement of keyframe 2
+    sslots = mapper.build_slots(3, 3, supp_valid, "supp")
+    supp = {dev: mapper.run_supp_refinement_gn(w, 2, sslots.trg_index[2], sslots.trg_valid[2],
+                                               False, geo)
+            for dev, w in wins.items()}
+    iters["supp"] = {d: r[2] for d, r in supp.items()}
+    errs["supp_logdepth"] = float((supp["cuda"][0].cpu() - supp["cpu"][0]).abs().max())
+    errs["supp_cost"] = float((supp["cuda"][1].cpu() - supp["cpu"][1]).abs().max())
+
+    # the fused step on keyframe 2 with frame 8, frame 7 the previous one
+    sv = supp_valid.copy()
+    sv[2] = [True, True]
+    fslots = mapper.build_slots(3, 3, sv, "supp")
+    T_init = se3.retract(torch.from_numpy(ds[8]["T"]),
+                         torch.tensor([0.005, 0.0, 0.0, 0.01, 0.0, 0.0]))
+    fused = {}
+    for dev, w in wins.items():
+        img = {k: torch.from_numpy(np.asarray(ds[k]["image"], np.float32)).to(dev)
+               for k in (7, 8)}
+        z = torch.zeros(2, device=dev)
+        fused[dev] = fused_frame_step(
+            w, 2, img[8], T_init.to(dev), z, img[7],
+            torch.from_numpy(ds[7]["T"]).to(dev), z, fslots.trg_index[2],
+            fslots.trg_valid[2], geo, [1], 0, 2, max_iters=15)
+    pc, pk = fused["cpu"].packed, fused["cuda"].packed
+    errs["fused_pose"] = pose_err(torch.from_numpy(pk[:16].reshape(4, 4)),
+                                  torch.from_numpy(pc[:16].reshape(4, 4)))
+    errs["fused_affine"] = float(np.abs(pk[16:18] - pc[16:18]).max())
+    errs["fused_gate_rel"] = float(np.max(np.abs(pk[18:21] - pc[18:21])
+                                          / np.maximum(np.abs(pc[18:21]), 1e-12)))
+    errs["fused_cost_rel"] = float(abs(pk[21] / pc[21] - 1))
+    errs["fused_logdepth"] = float((fused["cuda"].kp_logdepth.cpu()
+                                    - fused["cpu"].kp_logdepth).abs().max())
+    iters["fused"] = {d: (r.track_iters, r.supp_iters) for d, r in fused.items()}
+    print(f"96x128 GN card vs CPU: {json.dumps(errs)}; LM iterations (card, CPU) "
+          f"{json.dumps(iters)}; two assembles on the card bit-identical {deterministic}",
+          flush=True)
+    limits = {"track_pose": GN_TOL["pose"], "track_initial_cost_rel": GN_TOL["cost_rel"],
+              "track_final_cost_rel": GN_TOL["final_cost_rel"],
+              **{k: GN_TOL[k] for k in ("H", "g_t", "D", "gl", "Bs", "step")},
+              "assemble_cost_rel": GN_TOL["cost_rel"], "supp_logdepth": GN_TOL["logdepth"],
+              "supp_cost": GN_TOL["cost_rel"], "fused_pose": GN_TOL["pose"],
+              "fused_affine": GN_TOL["affine"], "fused_gate_rel": GN_TOL["gate_rel"],
+              "fused_cost_rel": GN_TOL["final_cost_rel"], "fused_logdepth": GN_TOL["logdepth"]}
+    bad = [k for k, v in errs.items() if not v <= limits[k]]
+    if bad:
+        fail(f"the card disagrees with the CPU on the GN path: {bad}")
+    if not deterministic:
+        fail("two assemble calls on the card differ")
+    return {"errors": errs, "lm_iters": iters, "assemble_bit_identical": deterministic}
+
+
 def run_vo(torch, stencil, k3):
     """Phase 7: the VO slice at full width on the card; then K2 and K3
     against their plain versions on the inputs of the path's first call at
@@ -682,7 +937,161 @@ def run_vo(torch, stencil, k3):
     print("K3 shortcut on the VO path's inputs: " + ", ".join(
         f"{r['shape'][0]} slabs {100 * r['undecided_share']:.2f}% of region pixels to the full "
         "path" for r in k3_rows), flush=True)
-    return launches, k2_rows, k3_rows, summary
+    recorded = {"bini_cg": list(k2_inputs.values()), "phase_counts": list(k3_inputs.values())}
+    return launches, k2_rows, k3_rows, summary, recorded
+
+
+def check_new_inputs(torch, stencil, k3, recorded: dict, checked: dict) -> dict:
+    """K2 and K3 against their plain versions on each recorded input that an
+    earlier check did not already see: K2's solution within 1e-4 x max|x|
+    with equal iterations where the solutions are equal, K3 exact.  Returns
+    {kernel: (inputs, new ones checked, max abs err)}."""
+    def same_args(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+
+    out = {}
+    for name, calls in recorded.items():
+        new = [a for a in calls if not any(same_args(a, b) for b in checked[name])]
+        err = 0.0
+        for args in new:
+            if name == "bini_cg":
+                x_k, it_k = stencil.bini_cg(*args)
+                x_r, it_r = stencil.bini_cg_reference(*args)
+                e = float((x_k - x_r).abs().max())
+                same = [bool(torch.equal(a, c)) for a, c in zip(x_k, x_r)]
+                iters_agree = all(int(i) == int(j) for i, j, sm in zip(it_k, it_r, same) if sm)
+                if not (e <= 1e-4 * float(x_r.abs().max()) and iters_agree):
+                    fail(f"K2 disagrees with its plain version at {tuple(args[0].shape)}")
+            else:
+                got, want = k3.phase_counts(*args), k3.phase_counts_reference(*args)
+                e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                if e != 0:
+                    fail(f"K3 disagrees with its plain version at {tuple(args[0].shape)}")
+            err = max(err, e)
+        out[name] = {"inputs": len(calls), "new_checked": len(new), "max_abs_err": err}
+    return out
+
+
+def run_vo_gn(torch, stencil, k3, adam: dict, adam_inputs: dict):
+    """Phase 7b: ``run_e2e("gn")`` at full width on the card (tracking at
+    level 2 only, 30 LM iterations; GN mapping, the mono init's with the
+    scale gauge pinned; fused frames after it), through the same frontend on
+    K3 and K2; then the kernels against their plain versions on the path's
+    inputs that phase 7 did not see."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.eval.e2e_synthetic import run_e2e
+
+    with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        r = run_e2e("gn", frames=VO_FRAMES, device="cuda",
+                    save_path=str(Path("build") / "chip_smoke" / "vo_gn"))
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    timer, odom, ate = r["timer"], r["odom"], r["ate"]["rmse"]
+    counts, totals = timer.counts, timer.totals
+    tracked = counts.get("fused_frame", 0) + counts.get("track", 0)
+    track_s = totals.get("fused_frame", 0.0) + totals.get("track", 0.0)
+    stages = ("fused_frame", "fused_track", "fused_supp", "fused_gating", "track",
+              "mapping_init", "mapping_map", "mapping_supp", "gating", "kf_frontend")
+    split = {k: round(totals[k], 4) for k in stages if k in totals}
+    split_counts = {k: counts.get(k, 0) for k in stages}
+    lm = {k: {"calls": len(v), "mean": float(np.mean(v)), "max": max(v)}
+          for k, v in odom.gn_iters.items() if v}
+    reads = timer.syncs.get("fused_frame", 0) / max(counts.get("fused_frame", 0), 1)
+    finite = all(np.isfinite(np.asarray(T)).all()
+                 for T in odom.global_track_trajectory.values())
+    summary = {"frames": r["frames"], "keyframes": r["keyframes"], "wall_s": r["wall_s"],
+               "ms_per_tracked_frame": 1000 * track_s / max(tracked, 1),
+               "fused_frames": counts.get("fused_frame", 0),
+               "unfused_tracked_frames": counts.get("track", 0),
+               "kf_add_s": [w for _, w, _ in r["kf_add_log"]], "ate_sim3": ate,
+               "launches": launches, "stage_s": split, "stage_calls": split_counts,
+               "lm_iters": lm,
+               "host_reads_per_fused_frame": reads,
+               "adam": {k: adam[k] for k in ("wall_s", "ms_per_tracked_frame", "keyframes",
+                                             "ate_sim3")}}
+    print(f"VO slice GN 480x640, {r['frames']} frames: {r['keyframes']} keyframes, wall "
+          f"{r['wall_s']:.2f} s (Adam {adam['wall_s']:.2f}), "
+          f"{summary['ms_per_tracked_frame']:.1f} ms per tracked frame (Adam "
+          f"{adam['ms_per_tracked_frame']:.1f}), Sim(3) ATE {ate:.5f} (Adam "
+          f"{adam['ate_sim3']:.5f}); {reads:.1f} host reads per fused frame; LM iterations "
+          f"{json.dumps(lm)}; launches {launches}", flush=True)
+    print(f"VO GN stage seconds: {json.dumps(split)}; calls {json.dumps(split_counts)}",
+          flush=True)
+    if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
+        fail("the GN VO slice did not launch K2 and K3")
+    if r["keyframes"] < 2:
+        fail("the GN VO slice made fewer than 2 keyframes")
+    if not (math.isfinite(ate) and ate < 0.05):
+        fail(f"the GN VO slice's Sim(3) ATE {ate} is not below 0.05")
+    if not (counts.get("fused_frame", 0) > 0 and counts.get("mapping_supp", 0) == 0):
+        fail("the GN VO slice did not take the fused step, or mapped 'supp' apart from it")
+    if not finite:
+        fail("the GN VO slice has a non-finite pose")
+    recorded = {"bini_cg": list(k2_inputs.values()), "phase_counts": list(k3_inputs.values())}
+    summary["kernel_checks"] = check_new_inputs(torch, stencil, k3, recorded, adam_inputs)
+    print("kernels on the GN VO path's inputs: " + json.dumps(summary["kernel_checks"]),
+          flush=True)
+    summary["device_busy"] = gn_busy(torch, odom)
+    return launches, summary
+
+
+def gn_busy(torch, odom) -> dict:
+    """Where a GN call's time goes, on the run's last state: one
+    ``gn_track`` of the last tracked frame against the newest keyframe
+    (30 LM iterations at the tracked level) and one ``assemble`` of the
+    window's 'map' problem; each call's time (CUDA events, after a warm-up),
+    the device's busy time and kernel count in it (torch.profiler), and the
+    idle share."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.cost import photometric as ph
+    from super_primitive_tpu_torch.image import pyramid as pyr
+    from super_primitive_tpu_torch.odometry import mapper
+    from super_primitive_tpu_torch.solve import gauss_newton as gn
+    from super_primitive_tpu_torch.solve import gn_mapping as gm
+
+    b, i, geo = odom.buffers, odom.num_kfs - 1, odom._geo_dims()
+    t = odom.config.alignment.track
+    lv = odom._track_levels()[-1]
+    kf_img = pyr.image_pyramid(b.images[i], t.pyramid_min, t.pyramid_max)[lv]
+    trg = odom.tracked[-1].image if odom.tracked else b.images[i]
+    trg_img = pyr.image_pyramid(trg, t.pyramid_min, t.pyramid_max)[lv]
+    bundle = b.bundle_at(i)
+    src = ph.precompute_source(kf_img, bundle, geo)
+    z = torch.zeros(2, device="cuda")
+    R = torch.linalg.inv(odom._tensor(odom.current_track)) @ b.poses[i]
+    iters = []
+
+    def track():
+        r = gn.gn_track(bundle, src, trg_img, b.K[i], b.kp_logdepth[i], b.kp_base[i], R, z, z,
+                        geo, max_iters=30)
+        iters.append(r.num_iters)
+
+    supp_valid = odom.supp_valid_host
+    slots = mapper.build_slots(odom.num_kfs, odom.window_size, supp_valid, "map")
+    masks = mapper.build_masks(odom.num_kfs, odom.window_size, supp_valid, "map",
+                               odom.window_size, True, False)
+    pm = torch.from_numpy(np.concatenate([np.repeat(masks.xi_mask, 6),
+                                          np.repeat(masks.affine_mask, 2)])).cuda()
+    sources = gm.prepare_sources(b, slots.trg_index, slots.trg_valid, slots.src_valid, geo)
+
+    def assemble():
+        gm.assemble(b, slots.trg_index, slots.trg_valid, slots.src_valid, pm, geo, False,
+                    b.pose_pool(), b.kp_logdepth, b.affine_pool(), sources=sources)
+
+    out = {"track_points": bundle.num_valid, "track_level_hw": list(trg_img.shape[:2]),
+           "assemble_sources": len(sources)}
+    for name, fn in (("gn_track", track), ("assemble", assemble)):
+        ms = time_ms(torch, fn, reps=3)
+        busy, kernels = busy_ms(torch, fn)
+        out[name] = {"ms": ms, "busy_ms": busy, "kernels": kernels, "idle_share": 1 - busy / ms}
+    out["gn_track"]["lm_iters"] = iters[-1]
+    print("GN calls on the card: " + json.dumps(out), flush=True)
+    return out
 
 
 def busy_ms(torch, fn) -> tuple[float, int]:
@@ -962,9 +1371,12 @@ def main() -> int:
     k2 = check_k2(torch, bini, stencil)
     k3_checks = check_k3(torch, k3)
     k1_launches, k1_path = check_bini_480(torch, bini, stencil)
-    k2_launches, k2_path = run_slice(torch, stencil)
+    k2_launches, k2_path, adam_slice = run_slice(torch, stencil)
+    tf_gn_launches, tf_gn = run_slice_gn(torch, stencil, k3, adam_slice)
     small_input_agreement(torch)
-    vo_launches, k2_vo, k3_vo, vo = run_vo(torch, stencil, k3)
+    gn_small = gn_card_vs_cpu(torch)
+    vo_launches, k2_vo, k3_vo, vo, vo_inputs = run_vo(torch, stencil, k3)
+    vo_gn_launches, vo_gn = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
     rn_launches, k2_rn, k3_rn, rn = run_real_nets(torch, stencil, k3,
                                                   Path(pkg.__file__).resolve().parent, smi)
 
@@ -993,21 +1405,28 @@ def main() -> int:
               k1_launches["bini_apply"], k1_path, k1,
               launches_by_path={"bini_480": k1_launches["bini_apply"],
                                 "two_frame": k2_launches["bini_apply"],
+                                "two_frame_gn": tf_gn_launches["bini_apply"],
                                 "vo": vo_launches["bini_apply"],
+                                "vo_gn": vo_gn_launches["bini_apply"],
                                 "real_nets": rn_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
               vo_launches["bini_cg"], k2_vo, k2,
               launches_by_path={"two_frame": k2_launches["bini_cg"],
+                                "two_frame_gn": tf_gn_launches["bini_cg"],
                                 "vo": vo_launches["bini_cg"],
+                                "vo_gn": vo_gn_launches["bini_cg"],
                                 "real_nets": rn_launches["bini_cg"]},
               two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn),
         entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
               vo_launches["phase_counts"], k3_vo, k3_checks,
-              launches_by_path={"vo": vo_launches["phase_counts"],
+              launches_by_path={"two_frame_gn": tf_gn_launches["phase_counts"],
+                                "vo": vo_launches["phase_counts"],
+                                "vo_gn": vo_gn_launches["phase_counts"],
                                 "real_nets": rn_launches["phase_counts"]},
               real_nets_path_shapes=k3_rn),
     ]
     print(json.dumps({"vo_slice": vo}))
+    print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))
     print(json.dumps({"real_nets": rn}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

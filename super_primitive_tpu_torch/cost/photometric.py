@@ -25,6 +25,7 @@ tolerance, not bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -58,9 +59,15 @@ def spread_logdepth(
 def normalized_image_coords(uv: torch.Tensor, geo_dims: tuple[int, int]) -> torch.Tensor:
     """(u, v) pixel coords at geometry resolution -> [-1, 1] normalized
     (x, y), align_corners=True over (W, H)."""
+    return 2.0 * uv / _coord_dims(tuple(geo_dims), uv.device) - 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _coord_dims(geo_dims: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """(W - 1, H - 1) as float32 on ``device``, built once: a tensor built
+    from host values on each call would copy it and wait for the card."""
     H, W = geo_dims
-    dims = torch.tensor([W - 1, H - 1], dtype=torch.float32, device=uv.device)
-    return 2.0 * uv / dims - 1.0
+    return torch.tensor([W - 1, H - 1], dtype=torch.float32, device=device)
 
 
 def precompute_source(

@@ -4,7 +4,10 @@ Port of ``super_primitive_tpu/eval/e2e_synthetic.py``: monocular VO on the
 synthetic planes sequence through the structured fake frontend, at the
 shapes of the JAX package's e2e workload (480x640 frames, 240x320 keyframe
 geometry, SAM at 240x320, window 4, 128 + 32 prompts, the depth split on).
-``small=True`` cuts it to 96x128 frames and 48x64 geometry.
+``small=True`` cuts it to 96x128 frames and 48x64 geometry.  With
+``solver="gn"`` tracking and mapping take the GN/LM solvers at ``gn_iters``
+LM iterations (the JAX package's GN workload: level 2 only, 30 iterations)
+and mapping linearizes on every ``point_stride``-th bundle point.
 """
 
 from __future__ import annotations
@@ -17,12 +20,16 @@ import numpy as np
 import torch
 
 
-def make_e2e_config(solver: str = "adam", small: bool = False, save_path: str | None = None):
+def make_e2e_config(solver: str = "adam", small: bool = False, gn_iters: int = 30,
+                    point_stride: int = 1, save_path: str | None = None):
     """The e2e synthetic odometry Config (the JAX package's shapes)."""
     from ..config import load_config
 
     H, W, pow_ = (96, 128, 0) if small else (480, 640, 1)
-    extra = {} if solver == "adam" else {"solver": solver}
+    extra = {} if solver == "adam" else {"solver": solver, "gn_max_iters": gn_iters}
+    map_extra = dict(extra)
+    if solver != "adam":
+        map_extra["gn_point_stride"] = point_stride
     return load_config({
         "save_path": save_path or os.path.join(tempfile.gettempdir(), f"sp_e2e_planes_{solver}"),
         "window_size": 4,
@@ -41,7 +48,7 @@ def make_e2e_config(solver: str = "adam", small: bool = False, save_path: str | 
             "opt_supporting": True,
             "init_frames": 3,
             "mapping": {"supp_every_n": 3, "init_steps": 60, "steps": 40,
-                        "continual_steps": 5, **extra},
+                        "continual_steps": 5, **map_extra},
             "track": {"pyramid_min": 0, "pyramid_max": 3, "steps": [0, 0, 300], **extra},
         },
         "kf": {"depth_validity_ratio": 0.60, "translation_thresh": 0.08},
@@ -49,9 +56,9 @@ def make_e2e_config(solver: str = "adam", small: bool = False, save_path: str | 
 
 
 def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
-            n_cells: int | None = None, path: str = "auto", device_sam: bool = True,
-            seed: int = 0, device: str | torch.device = "cuda",
-            save_path: str | None = None) -> dict:
+            n_cells: int | None = None, gn_iters: int = 30, point_stride: int = 1,
+            path: str = "auto", device_sam: bool = True, seed: int = 0,
+            device: str | torch.device = "cuda", save_path: str | None = None) -> dict:
     """Run the synthetic sequence end to end on ``device``; returns a stats
     dict: ate (Sim(3) ATE over all tracked frames), wall_s, frames,
     keyframes, kf_add_log, timer (StageTimer), odom (the Odometry object)."""
@@ -67,7 +74,8 @@ def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
         n_cells = 24 if small else 64
     if path == "auto":
         path = "orbit" if frames > 40 else "linear"
-    cfg = make_e2e_config(solver, small=small, save_path=save_path)
+    cfg = make_e2e_config(solver, small=small, gn_iters=gn_iters, point_stride=point_stride,
+                          save_path=save_path)
     ds = PlanesSequence(n_frames=frames, H=H, W=W, path=path)
     fe = StructuredFakeFrontend(cfg, seed=seed, n_cells=n_cells, device=device,
                                 device_sam=device_sam)

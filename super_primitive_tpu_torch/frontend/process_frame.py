@@ -36,7 +36,9 @@ ViT encoder (weights cast once, bf16 activations, tanh GELU, the explicit
 attention) and the mask decoder (weights, features, positional and prompt
 embeddings cast to bf16, tanh GELU in the upscaling head).  The prompt
 encoder, the logits handed to K3 and the IoU predictions are float32; the
-NNET runs in float32.
+NNET runs in float32.  Both builders turn TF32 off for cuBLAS and cuDNN
+(``utils.numerics.float32_matmuls``), so the float32 convolutions and
+matmuls stay float32 on the card whoever calls them.
 
 The resizes are ``image/resize.py``'s numpy replacements of the OpenCV
 calls the JAX package makes.
@@ -63,6 +65,7 @@ from ..keyframe import put_keypoints_back
 from ..nets.nnet import NNET, predict_normals
 from ..nets.sam.image_encoder import config_from_state_dict
 from ..nets.sam.predictor import SamPredictor
+from ..utils.numerics import float32_matmuls
 from .mask_generation import infer_masks
 from .post_process import split_disconnected_segments
 
@@ -388,6 +391,7 @@ def frontend_from_state_dicts(config: Config, sam_sd: dict, nnet_sd: dict,
     integration shape on the device when ``include_normals`` is off.  The
     ViT configuration is the one the SAM state dict's shapes give."""
     device = torch.device(device)
+    float32_matmuls()
     predictor = SamPredictor(sam_sd, config_from_state_dict(sam_sd),
                              compute_dtype=torch.bfloat16, device=device)
     nnet = NNET()

@@ -126,8 +126,9 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
-    flr = torch.tensor(0.1, dtype=R.dtype, device=R.device)
-    quat_candidates = quat_by_rijk / (2.0 * torch.maximum(q_abs[..., None], flr))
+    # a clamp, not a maximum with a device constant: building that constant
+    # would copy it from the host and wait for the card on every call
+    quat_candidates = quat_by_rijk / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
 
     best = torch.argmax(q_abs, dim=-1)
     onehot = torch.nn.functional.one_hot(best, 4).to(R.dtype)

@@ -106,7 +106,7 @@ def stats_from_lowres(lowres, iou, input_hw, out_size: int, target_length: int):
     if out_size != S:
         raise NotImplementedError(
             "mask statistics at out_size != S need a bilinear resize that is not "
-            "ported yet (ROADMAP.md, queue 1, item 8)")
+            "ported yet (ROADMAP.md, queue 1, item 7)")
     x = lowres.reshape(B * M, S, S)
     stability, areas = phase_upsample_counts(x, target_length // S, input_hw)
     masks_bin = (x > MASK_THRESHOLD) & _region(out_size, input_hw, target_length, x.device)
@@ -127,7 +127,7 @@ def select_from_lowres(lowres, iou, input_hw, out_size: int, iou_thr: float,
     if out_size != S:
         raise NotImplementedError(
             "selection at out_size != S needs a bilinear resize that is not "
-            "ported yet (ROADMAP.md, queue 1, item 8)")
+            "ported yet (ROADMAP.md, queue 1, item 7)")
     stability, areas = phase_upsample_counts(
         lowres.reshape(B * M, S, S), target_length // S, input_hw)
     stability = stability.reshape(B, M)

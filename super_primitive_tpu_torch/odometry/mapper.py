@@ -2,8 +2,8 @@
 affine parameters over chain connectivity with supporting frames.
 
 Port of ``super_primitive_tpu/odometry/mapper.py`` (``build_slots``,
-``build_masks``, ``run_mapping``, ``run_supp_refinement``, ``write_back``;
-``run_supp_refinement_gn`` waits for the GN slice).  Semantics:
+``build_masks``, ``run_mapping``, ``run_supp_refinement``,
+``run_supp_refinement_gn``, ``write_back``).  Semantics:
 
 - modes 'init' (first mapping), 'map' (scheduled), 'supp' (per-frame
   refinement of the newest keyframe's log-depths);
@@ -23,6 +23,12 @@ The JAX package's ``lax.while_loop`` becomes a Python loop.  The early stop
 reads the loss on the host once per step (a device sync per step), so the
 iteration counts equal the JAX package's.  Only valid sources and valid
 targets are computed; the JAX package computes every slot and masks.
+
+The GN supp refinement (``run_supp_refinement_gn``) takes a diagonal Newton
+step per segment: each point touches one scalar log-depth, so the normal
+equations are diagonal.  One forward-mode tangent (``torch.func.jvp``)
+gives every point's partial; the per-segment sums are a one-hot matmul
+(``solve.gn_mapping.segment_onehot``), a fixed order on every device.
 """
 
 from __future__ import annotations
@@ -33,9 +39,12 @@ import numpy as np
 import torch
 
 from ..cost import photometric as ph
+from ..geometry import projection
 from ..lie import se3
-from ..ops.sampling import pack_bilinear_taps
+from ..ops.sampling import bilinear_sample_packed, pack_bilinear_taps
+from ..solve.gn_mapping import segment_onehot
 from ..solve.retraction_adam import ScaleByAdam
+from ..utils.timing import host_flag
 from .window import WindowBuffers
 
 
@@ -228,6 +237,77 @@ def run_supp_refinement(buffers: WindowBuffers, src_slot: int, trg_index: np.nda
         with torch.no_grad():
             ld = ld - lr_logdepth * d
     return ld
+
+
+def _pool_rows(pool: torch.Tensor, idx) -> torch.Tensor:
+    """Rows ``idx`` (host ints) of a pool, stacked without copying the
+    indices to the device (which would wait for the card)."""
+    return torch.stack([pool[int(k)] for k in idx])
+
+
+def run_supp_refinement_gn(buffers: WindowBuffers, src_slot: int, trg_index: np.ndarray,
+                           trg_valid: np.ndarray, use_affine: bool, geo_dims: tuple[int, int],
+                           max_iters: int = 6):
+    """Newton 'supp' refinement of the newest keyframe's log-depths against
+    its valid targets, with LM damping on the diagonal system and IRLS-L1
+    weights (the Adam path's objective).  Returns (kp_logdepth (N,),
+    costs (2,) initial and final, the iterations run)."""
+    s = int(src_slot)
+    bundle = buffers.bundle_at(s)
+    src = buffers.source_samples(s, geo_dims)
+    idx = trg_index[trg_valid]
+    packed = _packed_pool(buffers, idx)
+    trg_packed = torch.stack([packed[int(k)] for k in idx])
+    rel = se3.inverse(_pool_rows(buffers.pose_pool(), idx)) @ buffers.poses[s]
+    aff_t = _pool_rows(buffers.affine_pool(), idx)
+    K, kp_base = buffers.K[s], buffers.kp_base[s]
+    N = buffers.kp_logdepth.shape[1]
+    onehot = segment_onehot(bundle.seg_id, N)
+    nv = float(max(bundle.num_valid, 1))
+    cnt = float(max(len(idx), 1))
+
+    def residuals(ld, shift):
+        """(T, P, C) residuals with a uniform per-point log-depth tangent."""
+        logd = ph.spread_logdepth(bundle, ld, kp_base) + shift
+        pts_t = projection.transform(projection.unproject(bundle.uv, torch.exp(logd), K)[None],
+                                     rel)
+        coords = ph.normalized_image_coords(projection.project(pts_t, K), geo_dims)
+        px, ok = bilinear_sample_packed(trg_packed, coords)
+        ok = ok & (pts_t[..., 2] > ph.Z_VALID_BATCH)
+        if use_affine:
+            px = ph.affine_compensate(px, buffers.affine[s], aff_t)
+        valid = (src.valid & ok & bundle.valid).to(px.dtype)
+        return (src.pixels[..., :3] - px[..., :3]) * valid[..., None], valid
+
+    def cost_of(r):
+        return torch.sum(torch.sum(torch.abs(r), dim=(1, 2)) / (3.0 * nv)) / cnt
+
+    zero = torch.zeros((), device=K.device)
+    one = torch.ones((), device=K.device)
+    ld = buffers.kp_logdepth[s]
+    cost0 = cost = cost_of(residuals(ld, zero)[0])
+    lam = torch.full((), 1e-3, device=K.device)
+    it = 0
+    while it < max_iters:
+        r0, j, valid = torch.func.jvp(lambda sh: residuals(ld, sh), (zero,), (one,),
+                                      has_aux=True)
+        w = 1.0 / torch.clamp(torch.abs(r0), min=1e-3)
+        w = w * valid[..., None] / (3.0 * nv * cnt)
+        # the diagonal system, summed per segment in a fixed order
+        JtJ = onehot @ torch.sum(w * j * j, dim=(0, 2))
+        Jtr = onehot @ torch.sum(w * j * r0, dim=(0, 2))
+        ld_new = ld - Jtr / (JtJ * (1.0 + lam) + 1e-12)
+        cost_new = cost_of(residuals(ld_new, zero)[0])
+        improved = cost_new < cost
+        ld = torch.where(improved, ld_new, ld)
+        lam = torch.where(improved, torch.clamp(lam * 0.33, min=1e-6), lam * 4.0)
+        rel_change = torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-30)
+        done = (improved & (rel_change < 1e-6)) | (lam > 1e4)
+        cost = torch.where(improved, cost_new, cost)
+        it += 1
+        if host_flag(done):
+            break
+    return ld, torch.stack([cost0, cost]), it
 
 
 def write_back(buffers: WindowBuffers, result: MapResult) -> None:

@@ -1,20 +1,29 @@
-"""Monocular visual odometry loop, Adam path.
+"""Monocular visual odometry loop, with the Adam and the GN/LM solvers.
 
-Port of ``super_primitive_tpu/odometry/odometry.py`` (``Odometry`` without
-its GN branches): per frame, track -> per-frame 'supp' mapping ->
-scheduled 'map' mapping -> keyframe gating -> keyframe init (with depth
-re-initialisation from the rendered depth) -> window roll.  Tracking,
-mapping and the depth render run as PyTorch on the loop's device
-(``tracker.py``, ``mapper.py``, ``ops/scatter.py``); this file shuffles
-slots and timestamps on the host.
+Port of ``super_primitive_tpu/odometry/odometry.py`` (``Odometry``): per
+frame, track -> per-frame 'supp' mapping -> scheduled 'map' mapping ->
+keyframe gating -> keyframe init (with depth re-initialisation from the
+rendered depth) -> window roll.  Tracking, mapping and the depth render run
+as PyTorch on the loop's device (``tracker.py``, ``mapper.py``,
+``solve/gauss_newton.py``, ``solve/gn_mapping.py``, ``ops/scatter.py``);
+this file shuffles slots and timestamps on the host.
+
+``alignment.track.solver`` and ``alignment.mapping.solver`` pick ``adam``
+(the reference's solver) or ``gn`` (LM).  With both on ``gn`` and the
+system initialised, a tracked frame is one ``fused_step.fused_frame_step``
+(track, supporting-slot refresh, supp refinement, gating) under the timer
+stage ``fused_frame``, and its gating feeds the next keyframe decision;
+the keyframe-cadence work (window mapping, keyframe init) stays separate.
+The fused step updates the device log-depths without a host copy; the host
+keyframes' copies follow at the next window mapping, or lazily
+(``_sync_host_logdepth``) at the end of a run.
 
 The frontend is injected (``process_to_kf(image, K)`` -> host geometry,
 ``process_to_supp_kf`` -> image only), so the fake SAM/normals frontend and
 the GT-depth stub are interchangeable.
 
-Not ported here: ``solver: gn`` for tracking or mapping and the fused GN
-frame step (ROADMAP.md, queue 1, item 9), checkpoints (``save_every``,
-``restore``, ``dump_kfs``) and the live viewer hook.
+Not ported here: checkpoints (``save_every``, ``restore``, ``dump_kfs``;
+ROADMAP.md, queue 1, item 5) and the live viewer hook.
 """
 
 from __future__ import annotations
@@ -27,44 +36,15 @@ import numpy as np
 import torch
 
 from ..config.schema import Config
-from ..cost import photometric as ph
-from ..geometry import projection
 from ..image import pyramid as pyr
 from ..keyframe import build_bundle_np
-from ..lie import se3
-from ..ops.scatter import render_depth
-from ..utils.timing import StageTimer
+from ..solve.gauss_newton import gn_track_frame
+from ..solve.gn_mapping import gn_mapping
+from ..utils.numerics import float32_matmuls
+from ..utils.timing import StageTimer, to_host
 from . import depth_init, io, kf_criteria, mapper, tracker, window
+from .fused_step import fused_frame_step
 
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy that shares no memory with ``t`` (``.cpu().numpy()`` of a
-    CPU tensor would alias the window buffers, which change in place)."""
-    return t.detach().cpu().numpy().copy()
-
-
-def render_kf_depth(buffers: window.WindowBuffers, kf_slot: int, pose: torch.Tensor,
-                    geo_dims) -> torch.Tensor:
-    """Render keyframe ``kf_slot``'s points into the camera at world pose
-    ``pose`` (min z-buffer), an (H, W) depth map."""
-    bundle = buffers.bundle_at(kf_slot)
-    delta = se3.inverse(pose) @ buffers.poses[kf_slot]
-    logd = ph.spread_logdepth(bundle, buffers.kp_logdepth[kf_slot], buffers.kp_base[kf_slot])
-    pts = projection.unproject(bundle.uv, torch.exp(logd), buffers.K[kf_slot])
-    pts = projection.transform(pts, delta)
-    depth, _ = render_depth(pts, buffers.K[kf_slot], geo_dims, valid=bundle.valid)
-    return depth
-
-
-def gating_metrics(buffers: window.WindowBuffers, kf_slot: int, pose: torch.Tensor,
-                   geo_dims) -> tuple[float, float, float]:
-    """Keyframe gating: render the last keyframe's points at ``pose``; the
-    share of valid pixels, the median-depth-scaled translation gap and the
-    median depth."""
-    depth = render_kf_depth(buffers, kf_slot, pose, geo_dims)
-    validity_ratio = torch.mean((depth > 1e-6).to(torch.float32))
-    diff, scale = kf_criteria.translation_difference(pose, buffers.poses[kf_slot], depth)
-    return tuple(float(v) for v in torch.stack([validity_ratio, diff, scale]).cpu())
 
 
 class Frontend(Protocol):
@@ -86,14 +66,14 @@ class Odometry:
     def __init__(self, config: Config, frontend: Frontend, dataset,
                  device: str | torch.device = "cuda"):
         a = config.alignment
-        if a.track.solver != "adam" or a.mapping.solver != "adam":
-            raise NotImplementedError(
-                "the GN solvers and the fused GN frame step are not ported yet "
-                "(ROADMAP.md, queue 1, item 9); use solver: adam")
+        for part in (a.track, a.mapping):
+            if part.solver not in ("adam", "gn"):
+                raise ValueError(f"unknown solver {part.solver!r}; use adam or gn")
         if config.restore is not None or config.save_every > 0 or config.dump_kfs:
             raise NotImplementedError(
                 "odometry checkpoints (restore, save_every, dump_kfs) are not ported "
-                "yet (ROADMAP.md, queue 1)")
+                "yet (ROADMAP.md, queue 1, item 5)")
+        float32_matmuls()
         self.config = config
         self.frontend = frontend
         self.dataset = dataset
@@ -112,6 +92,10 @@ class Odometry:
         self.point_cap = None
         # host mirror of buffers.supp_valid: every supp change is host driven
         self.supp_valid_host: Optional[np.ndarray] = None
+        self._last_gate: Optional[tuple] = None  # the fused step's gating
+        self._host_ld_dirty = False
+        # LM iterations of each GN call: track (a level), supp, init, map
+        self.gn_iters: dict[str, list[int]] = {"track": [], "supp": [], "init": [], "map": []}
 
         self.tracked: list[TrackedFrame] = []
         self.current_track: Optional[np.ndarray] = None
@@ -144,8 +128,8 @@ class Odometry:
 
     def estimate_depth_latest_kf(self, pose: np.ndarray) -> np.ndarray:
         """Render the last keyframe's points into the camera at ``pose``."""
-        return _host(render_kf_depth(self.buffers, self.num_kfs - 1, self._tensor(pose),
-                                     self._geo_dims()))
+        return to_host(kf_criteria.render_kf_depth(self.buffers, self.num_kfs - 1,
+                                                   self._tensor(pose), self._geo_dims()))
 
     # -------------------------------------------------------- keyframe init
     def init_keyframe(self, frame: dict, pose: np.ndarray, timestamp: str):
@@ -251,16 +235,27 @@ class Odometry:
             i = self.num_kfs - 1
             b = self.buffers
             t = self.config.alignment.track
-            T_frame, affine, losses = tracker.track_frame(
-                b.bundle_at(i), self._kf_track_pyramid(), trg_image, b.K[i],
-                b.kp_logdepth[i], b.kp_base[i], self._tensor(self.host_kfs[-1].pose),
-                self._tensor(self.current_track), b.affine[i], self._tensor(self.current_aff),
-                self._geo_dims(), tuple(t.steps), t.lr, t.pyramid_min, t.pyramid_max,
-                use_affine=bool(self.affine_compensation),
-            )
-            final = losses[-1][-1:] if losses else torch.full((1,), float("nan"),
-                                                             device=self.device)
-            out = _host(torch.cat([T_frame.reshape(16), affine, final]))
+            args = (b.bundle_at(i), self._kf_track_pyramid())
+            kf_args = (b.K[i], b.kp_logdepth[i], b.kp_base[i],
+                       self._tensor(self.host_kfs[-1].pose), self._tensor(self.current_track),
+                       b.affine[i], self._tensor(self.current_aff), self._geo_dims())
+            if t.solver == "gn":
+                trg_pyr = pyr.image_pyramid(trg_image, t.pyramid_min, t.pyramid_max)
+                T_frame, affine, infos = gn_track_frame(
+                    *args, trg_pyr, *kf_args, levels=self._track_levels(),
+                    max_iters=t.gn_max_iters, use_affine=bool(self.affine_compensation))
+                self.gn_iters["track"] += [r.num_iters for r in infos]
+                # the finest level's final cost, as the Adam path reports
+                final = (infos[-1].final_cost[None] if infos
+                         else torch.full((1,), float("nan"), device=self.device))
+            else:
+                T_frame, affine, losses = tracker.track_frame(
+                    *args, trg_image, *kf_args, tuple(t.steps), t.lr, t.pyramid_min,
+                    t.pyramid_max, use_affine=bool(self.affine_compensation),
+                )
+                final = losses[-1][-1:] if losses else torch.full((1,), float("nan"),
+                                                                 device=self.device)
+            out = to_host(torch.cat([T_frame.reshape(16), affine, final]))
         T_frame_np = out[:16].reshape(4, 4)
         self.current_track = T_frame_np
         self.current_aff = out[16:18].copy()
@@ -270,6 +265,74 @@ class Odometry:
         print(f"tracking time {time.perf_counter() - t0:.3f} sec, tracking loss = "
               f"{float(out[18]):.4f}", flush=True)
         return {"pose": T_frame_np, "affine": self.current_aff, "ts": timestamp}
+
+    def _track_levels(self) -> list[int]:
+        """The pyramid levels GN tracks: those the step schedule marks
+        active."""
+        return [lv for lv, n in enumerate(self.config.alignment.track.steps) if n > 0]
+
+    # ------------------------------------------------ fused per-frame step
+    def _fused_enabled(self) -> bool:
+        """Steady-state frames of the GN path take the fused step; other
+        solver configurations track and refine separately."""
+        a = self.config.alignment
+        return (self.initialised and a.track.solver == "gn" and a.mapping.solver == "gn"
+                and self.num_kfs >= 1)
+
+    def fused_frame(self, frame: dict, timestamp: str) -> dict:
+        """Track, refresh the supporting slots, refine and gate in one
+        ``fused_frame_step``, which reads from the card once at its end (and
+        once per LM iteration for the stop flags)."""
+        t0 = time.perf_counter()
+        with self.timer.stage("fused_frame"):
+            supp = self.frontend.process_to_supp_kf(frame["image"], frame["intrinsics"])
+            trg_image = self._tensor(supp["image"])
+            i = self.num_kfs - 1
+            t = self.config.alignment.track
+            prev = self.tracked[-1] if self.tracked else None
+            # the supp refinement's connectivity, from the refreshed mirror
+            self.supp_valid_host[i] = False
+            self.supp_valid_host[i, 0] = True
+            self.supp_valid_host[i, 1] = prev is not None
+            slots = mapper.build_slots(self.num_kfs, self.window_size, self.supp_valid_host,
+                                       "supp")
+            do_supp = self.config.alignment.mapping.continual_steps > 0
+            res = fused_frame_step(
+                self.buffers, i, trg_image, self._tensor(self.current_track),
+                self._tensor(self.current_aff), prev.image if prev else None,
+                self._tensor(prev.pose) if prev else None,
+                self._tensor(prev.affine) if prev else None,
+                slots.trg_index[i], slots.trg_valid[i], self._geo_dims(),
+                self._track_levels(), t.pyramid_min, t.pyramid_max,
+                max_iters=t.gn_max_iters, use_affine=bool(self.affine_compensation),
+                do_supp=do_supp, kf_pyramid=self._kf_track_pyramid(), timer=self.timer)
+            self._host_ld_dirty = True
+        out = res.packed
+        self.gn_iters["track"] += res.track_iters
+        if do_supp:
+            self.gn_iters["supp"].append(res.supp_iters)
+        T_frame = out[:16].reshape(4, 4).astype(np.float32)
+        affine = out[16:18].astype(np.float32)
+        self._last_gate = (float(out[18]), float(out[19]), float(out[20]))
+        self.current_track = T_frame
+        self.current_aff = affine
+        self.current_ts = timestamp
+        self.tracked.append(TrackedFrame(timestamp, trg_image, T_frame, affine.copy()))
+        self.global_track_trajectory[timestamp] = T_frame
+        print(f"tracking time {time.perf_counter() - t0:.3f} sec (fused), tracking loss = "
+              f"{float(out[21]):.4f}", flush=True)
+        return {"pose": T_frame, "affine": affine, "ts": timestamp}
+
+    def _sync_host_logdepth(self):
+        """Refresh the host keyframes' log-depth copies after fused updates
+        (lazily: only the host's readers need them)."""
+        if not self._host_ld_dirty:
+            return
+        lds = to_host(self.buffers.kp_logdepth)
+        for i in range(self.num_kfs):
+            n_i = self.host_kfs[i].kp_logdepth.shape[0]
+            self.host_kfs[i].kp_logdepth = lds[i, :n_i]
+        self._host_ld_dirty = False
 
     # ------------------------------------------------------------- mapping
     def _refresh_latest_supp_from_tracked(self):
@@ -301,7 +364,11 @@ class Odometry:
 
     def mapping(self, num_iters: int, mode: str = "map"):
         assert mode in ("init", "map", "supp")
+        if mode != "supp":
+            self._last_gate = None  # the poses move: the fused gating is stale
         t0 = time.perf_counter()
+        map_cfg = self.config.alignment.mapping
+        cost_note = ""
         with self.timer.stage(f"mapping_{mode}"):
             if mode == "init":
                 window.clear_supporting(self.buffers)
@@ -313,34 +380,59 @@ class Odometry:
             geo = self._geo_dims()
             if mode == "supp":
                 i = self.num_kfs - 1
-                ld = mapper.run_supp_refinement(
-                    self.buffers, i, slots.trg_index[i], slots.trg_valid[i], 1e-2,
-                    num_iters, bool(self.affine_compensation), geo)
+                if map_cfg.solver == "gn":
+                    ld, _, iters = mapper.run_supp_refinement_gn(
+                        self.buffers, i, slots.trg_index[i], slots.trg_valid[i],
+                        bool(self.affine_compensation), geo)
+                    self.gn_iters["supp"].append(iters)
+                else:
+                    ld = mapper.run_supp_refinement(
+                        self.buffers, i, slots.trg_index[i], slots.trg_valid[i], 1e-2,
+                        num_iters, bool(self.affine_compensation), geo)
                 self.buffers.kp_logdepth[i] = ld
                 n_i = self.host_kfs[i].kp_logdepth.shape[0]
-                self.host_kfs[i].kp_logdepth = _host(ld[:n_i])
+                self.host_kfs[i].kp_logdepth = to_host(ld[:n_i])
                 self._update_track_pose()
                 self.initialised = True
                 return
             masks = mapper.build_masks(
                 self.num_kfs, self.window_size, self.supp_valid_host, mode,
                 self.window_size, self.opt_supporting, self.affine_compensation)
-            lr_pose = 1e-2 if (mode == "init" and self.mono_init) else 1e-4
-            result = mapper.run_mapping(
-                self.buffers, slots, masks, lr_pose, 1e-2, 1e-5, num_iters,
-                self.initialised, bool(self.affine_compensation), geo,
-                drag_supporting=not self.opt_supporting)
+            if map_cfg.solver == "gn":
+                res = gn_mapping(
+                    self.buffers, slots.trg_index, slots.trg_valid, slots.src_valid,
+                    masks.xi_mask, masks.ld_mask, masks.affine_mask, geo,
+                    max_iters=map_cfg.gn_max_iters, use_affine=bool(self.affine_compensation),
+                    drag_supporting=not self.opt_supporting,
+                    point_stride=map_cfg.gn_point_stride,
+                    # mono init's global-scale null direction lets LM's damping
+                    # follow float32 noise; pin the gauge (the frozen first
+                    # pose is the identity there)
+                    pin_scale_gauge=(mode == "init" and bool(self.mono_init)))
+                result = mapper.MapResult(poses=res.poses, kp_logdepth=res.kp_logdepth,
+                                          affine=res.affine, losses=[],
+                                          num_iters=res.num_iters)
+                self.gn_iters[mode].append(res.num_iters)
+                c0, c1 = to_host(torch.stack([res.initial_cost, res.final_cost]))
+                cost_note = f", cost {c0:.5f} -> {c1:.5f}"
+            else:
+                lr_pose = 1e-2 if (mode == "init" and self.mono_init) else 1e-4
+                result = mapper.run_mapping(
+                    self.buffers, slots, masks, lr_pose, 1e-2, 1e-5, num_iters,
+                    self.initialised, bool(self.affine_compensation), geo,
+                    drag_supporting=not self.opt_supporting)
             mapper.write_back(self.buffers, result)
-            poses = _host(self.buffers.poses)
-            lds = _host(self.buffers.kp_logdepth)
+            poses = to_host(self.buffers.poses)
+            lds = to_host(self.buffers.kp_logdepth)
             for i in range(self.num_kfs):
                 self.host_kfs[i].pose = poses[i]
                 n_i = self.host_kfs[i].kp_logdepth.shape[0]
                 self.host_kfs[i].kp_logdepth = lds[i, :n_i]
                 self.global_kf_trajectory[self.host_kfs[i].timestamp] = poses[i]
+            self._host_ld_dirty = False
             self._update_track_pose()
         print(f"Mapping[{mode}] time {time.perf_counter() - t0:.3f} sec "
-              f"({result.num_iters} iters)", flush=True)
+              f"({result.num_iters} iters{cost_note})", flush=True)
         self.initialised = True
 
     def _update_track_pose(self):
@@ -352,11 +444,11 @@ class Odometry:
         b = self.buffers
         if self.tracked and supp_valid.any() and int(self.tracked[-1].timestamp) > latest_kf_ts:
             j = int(supp_valid.nonzero()[0][-1])
-            self.current_track = _host(b.supp_poses[i, j])
-            self.current_aff = _host(b.supp_affine[i, j])
+            self.current_track = to_host(b.supp_poses[i, j])
+            self.current_aff = to_host(b.supp_affine[i, j])
         else:
-            self.current_track = _host(b.poses[i])
-            self.current_aff = _host(b.affine[i])
+            self.current_track = to_host(b.poses[i])
+            self.current_aff = to_host(b.affine[i])
             self.current_ts = self.host_kfs[-1].timestamp
 
     # ------------------------------------------------------------- gating
@@ -367,10 +459,15 @@ class Odometry:
             return False, None
         if int(timestamp) - start_id == num_init and not self.initialised:
             return True, None
-        with self.timer.stage("gating"):
-            validity_ratio, diff, scale = gating_metrics(
-                self.buffers, self.num_kfs - 1, self._tensor(self.current_track),
-                self._geo_dims())
+        if self._last_gate is not None:
+            validity_ratio, diff, scale = self._last_gate
+            self._last_gate = None
+        else:
+            with self.timer.stage("gating"):
+                gate = kf_criteria.gating_tensors(self.buffers, self.num_kfs - 1,
+                                                  self._tensor(self.current_track),
+                                                  self._geo_dims())
+                validity_ratio, diff, scale = (float(v) for v in to_host(gate))
         is_kf = False
         if validity_ratio < self.config.kf.depth_validity_ratio:
             is_kf = True
@@ -397,9 +494,12 @@ class Odometry:
             frame = self.dataset[frame_id]
             timestamp = self.id_to_timestamp(frame_id)
             self.frame_timestamps[timestamp] = float(frame.get("timestamp", frame_id))
-            self.track_frame(frame, timestamp)
-            if self.initialised and map_cfg.continual_steps > 0:
-                self.mapping(map_cfg.continual_steps, mode="supp")
+            if self._fused_enabled():
+                self.fused_frame(frame, timestamp)
+            else:
+                self.track_frame(frame, timestamp)
+                if self.initialised and map_cfg.continual_steps > 0:
+                    self.mapping(map_cfg.continual_steps, mode="supp")
 
             if self.mapping_scheduled:
                 i = self.num_kfs - 1
@@ -420,6 +520,7 @@ class Odometry:
                 else:
                     self.mapping_scheduled = True
 
+        self._sync_host_logdepth()
         traj_dir = self.config.save_path + "/traj"
         io.save_trajectory(traj_dir, self.global_kf_trajectory, "final")
         io.save_trajectory(traj_dir, self.global_track_trajectory, "final", name="track_traj")

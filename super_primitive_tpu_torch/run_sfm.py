@@ -37,18 +37,21 @@ import torch
 from .config import load_config
 from .keyframe import KeyFrame, build_bundle_np, keyframe_pyramid, make_segment_geometry
 from .lie import se3
-from .solve.two_frame import TwoFrameConfig, random_depth_seeds, solve_two_frame
+from .solve.two_frame import (
+    TwoFrameConfig,
+    random_depth_seeds,
+    solve_two_frame,
+    solve_two_frame_gn,
+)
+from .utils.numerics import float32_matmuls
 
 
 def require_device(device: str | torch.device) -> torch.device:
     """The device to run on, checked, with TF32 off for float32 geometry."""
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found (pass --device cpu to run on the CPU)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found (pass --device cpu to run on the CPU)")
+    float32_matmuls()
     return device
 
 
@@ -58,7 +61,7 @@ def load_dataset(config, n_frames: int | None = None):
     ds = config.dataset
     if ds.type != "planes":
         raise NotImplementedError(
-            f"dataset type {ds.type!r} is not ported yet (ROADMAP.md, queue 1); "
+            f"dataset type {ds.type!r} is not ported yet (ROADMAP.md, queue 1, item 3); "
             "use type: planes"
         )
     from .data.synthetic import PlanesSequence
@@ -117,12 +120,16 @@ def make_pyramids(config, kf_data: dict, supp: dict, device):
 def run_two_frame(config, frontend, dataset, device="cuda",
                   solve_cfg: TwoFrameConfig = TwoFrameConfig()) -> dict:
     """Frontend on the source frame, then the coarse-to-fine solve for the
-    target frame's pose and the per-segment depths.
+    target frame's pose and the per-segment depths: retraction Adam
+    (``solve_cfg``), or GN/LM when ``alignment.mapping.solver`` is ``gn``
+    (``solve_two_frame_gn`` with ``alignment.mapping.gn_max_iters``
+    iterations a level, as odometry's mapping solver is chosen).
 
     Init: the ground-truth relative pose times exp of N(0, 0.05^2) noise
     from a seed-42 generator; depth seeds from a seed-43 generator.  Writes
     ``two_frame_result.npz`` under ``config.save_path`` and returns the
-    result with its timings and pose errors."""
+    result with its timings and pose errors; ``losses`` holds each level's
+    loss history (Adam) or its (initial, final) cost (GN)."""
     device = torch.device(device)
 
     def sync():
@@ -152,9 +159,18 @@ def run_two_frame(config, frontend, dataset, device="cuda",
     ld0 = random_depth_seeds(torch.Generator().manual_seed(43), geo.num_segments,
                              solve_cfg, device=device)
 
+    solver = config.alignment.mapping.solver
     sync()
     t0 = time.perf_counter()
-    poses, ld, losses = solve_two_frame(src_pyr, [trg_pyr], T_init[None], ld0, solve_cfg)
+    if solver == "gn":
+        poses, ld, gn_losses = solve_two_frame_gn(
+            src_pyr, [trg_pyr], T_init[None], ld0,
+            max_iters=config.alignment.mapping.gn_max_iters)
+        losses = [torch.tensor(pair) for pair in gn_losses]
+    elif solver == "adam":
+        poses, ld, losses = solve_two_frame(src_pyr, [trg_pyr], T_init[None], ld0, solve_cfg)
+    else:
+        raise ValueError(f"unknown solver {solver!r}; use adam or gn")
     sync()
     solve_s = time.perf_counter() - t0
 
@@ -170,6 +186,7 @@ def run_two_frame(config, frontend, dataset, device="cuda",
         "pose_err_init": pose_err(T_init),
         "pose_err_final": pose_err(poses[0]),
         "num_segments": geo.num_segments,
+        "solver": solver,
         "frontend_s": frontend_s,
         "solve_s": solve_s,
     }
@@ -240,7 +257,7 @@ def main(argv=None):
     dataset = load_dataset(config)
     frontend = build_frontend(args, config, device)
     r = run_two_frame(config, frontend, dataset, device)
-    print(f"two-frame SfM done on {device}: {r['num_segments']} segments, "
+    print(f"two-frame SfM ({r['solver']}) done on {device}: {r['num_segments']} segments, "
           f"final loss {r['final_loss']:.5f}, pose err |log| "
           f"{r['pose_err_init']:.4f} -> {r['pose_err_final']:.4f}, "
           f"frontend {r['frontend_s']:.2f} s, solve {r['solve_s']:.2f} s")

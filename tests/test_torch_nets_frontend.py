@@ -20,7 +20,7 @@ synthetic weights (``nets/synth.py``).
 - ``convert.load_npz_tree`` on ``.npz`` files written as
   ``convert_checkpoints.py`` writes them, and ``run_sfm``'s
   ``--sam-ckpt``/``--nnet-ckpt`` over 4 frames of odometry on the CPU
-  through ``build_frontend`` (bf16 SAM).
+  through ``build_frontend`` (bf16 SAM); the builders turn TF32 off.
 """
 
 import jax
@@ -181,6 +181,17 @@ def test_build_frontend(trees):
     assert predictor.model.prompt_encoder.no_mask_embed.weight.dtype == torch.float32
     with pytest.raises(ValueError, match="both required"):
         tpf.build_frontend(config, trees[0], None, device="cpu")
+
+
+def test_frontend_turns_tf32_off(trees, monkeypatch):
+    """``frontend_from_state_dicts`` turns TF32 off for cuBLAS and cuDNN,
+    whoever builds the frontend (torch's default keeps cuDNN's on)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    tpf.frontend_from_state_dicts(frontend_cfg(tload_config), tconvert.sam_from_flax(trees[0]),
+                                  tconvert.nnet_from_flax(trees[1]), device="cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 ODOM_YAML = """

@@ -188,7 +188,7 @@ class TestRetractionAdam:
                                    np.asarray(res.params.kp_logdepth), atol=1e-4)
 
 
-def small_cfg(load_config, save_path):
+def small_cfg(load_config, save_path, solver="adam"):
     return load_config({
         "save_path": str(save_path),
         "dataset": {"type": "planes", "path": "linear", "source_id": 0, "target_id": 4},
@@ -198,7 +198,8 @@ def small_cfg(load_config, save_path):
             "cg_max_iter": 150, "cg_tol": 1e-3, "check_for_depth_disc": False,
         },
         "sam_params": {"infer_resolution": [96, 128]},
-        "alignment": {"pyramid_min": 0, "pyramid_max": 2},
+        "alignment": {"pyramid_min": 0, "pyramid_max": 2,
+                      "mapping": {"solver": solver, "gn_max_iters": 10}},
     })
 
 
@@ -267,6 +268,20 @@ class TestTwoFrameSlice:
         assert np.isfinite(r["final_loss"]) and r["kp_logdepth"].shape == (r["num_segments"],)
         saved = np.load(tmp_path / "two_frame_result.npz")
         assert np.array_equal(saved["pose"], r["pose"])
+
+    def test_run_two_frame_dispatches_on_mapping_solver(self, tmp_path):
+        """``alignment.mapping.solver: gn`` takes ``solve_two_frame_gn``
+        (per-level (initial, final) costs), as the JAX CLI chooses it."""
+        cfg = small_cfg(tload_config, tmp_path, solver="gn")
+        fe = TFrontend(cfg, n_cells=24, device="cpu")
+        r = trun.run_two_frame(cfg, fe, trun.load_dataset(cfg), device="cpu")
+        assert r["solver"] == "gn" and len(r["losses"]) == 2
+        assert all(l.shape == (2,) and l[1] <= l[0] for l in r["losses"])
+        assert r["pose_err_final"] < r["pose_err_init"]
+        assert np.isfinite(r["kp_logdepth"]).all()
+        cfg.alignment.mapping.solver = "lbfgs"
+        with pytest.raises(ValueError, match="unknown solver"):
+            trun.run_two_frame(cfg, fe, trun.load_dataset(cfg), device="cpu")
 
     def test_cli_raises_on_missing_card_and_unported_paths(self, tmp_path):
         if not torch.cuda.is_available():
