@@ -56,13 +56,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      frame, with K3 launched in both rounds of each keyframe and K2 wherever
      a segment exists, and a 4-frame VO run (``run_sfm.run_odometry``)
      through the same frontend; K3 (exact) and K2 on the real decoder's and
-     BiNI's recorded inputs; encoder, decode, selection and NNET times.
+     BiNI's recorded inputs; encoder, decode, selection and NNET times;
+  9. VOID depth completion at full width on trees in the VOID, TUM and
+     Replica layouts written from the planes sequence
+     (``eval/dataset_trees.py``; 1500 sparse pixels an image): (a) ``python
+     -m super_primitive_tpu_torch.evaluate_void --sam-ckpt --nnet-ckpt``
+     (its ``main``) with ``configs/void_dataset.yaml`` unchanged over two
+     images, on ``.npz`` trees of phase 8's synthetic weights written by
+     ``convert.sam_to_flax`` / ``nnet_to_flax``,
+     then a third image through ``DepthCompletion(invalid_ratio_thresh=0)``
+     so that the loose rerun, and with it K3's statistics path, runs; K2
+     and K3 launched, no K1, every K2 field holding a plan; per image the
+     wall and the stage split, K3 slabs, peak memory, both metric tables;
+     every K2 call logged; K2 against its plain version at the call's own
+     max_iter and tol on the first segments and the longest-running ones of
+     the path's largest call and of its longest-running call, each call
+     timed whole; K3 against its plain version, timed, on the first call at
+     each slab count;
+     (b) the structured fake completes the same images, gated on the
+     valid-only AbsRel and the validity rate (``VOID_FAKE_*``); (c) the TUM
+     and Replica trees decode to the arrays written, ``run_sfm --odom
+     --fake-frontend`` on the TUM tree and two-frame ``run_sfm`` on the
+     Replica one (GN solvers) end finite, a ``tum_undistort`` read; decode
+     ms per frame.
 
-Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b
-and 8 and read just after; a kernel of a path that was not launched there
+Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b,
+8 and 9 and read just after; a kernel of a path that was not launched there
 fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
-give it, and after the path each kernel is checked and timed on them.
+give it (phase 9 keeps K2's largest and longest-running calls whole), and
+after the path each kernel is checked and timed on them.
 It prints one ``{"kernels": [...]}`` line with each kernel's error, times
 and bound on those inputs (summed over the shapes), the nvidia-smi line,
 and last ``{"ok": true, "device": ...}``.  K1's and K3's rows carry
@@ -122,6 +145,20 @@ NET_CARD_TOL = {"block": 1e-5, "decoder": 4e-6, "nnet": 1e-5}
 # float32 run's largest magnitude: about twice an H100's readings of
 # 2.5e-2 (features), 2.8e-2 (logits) and 1.2e-2 (IoU)
 BF16_TOL = {"features": 5e-2, "logits": 6e-2, "iou": 3e-2}
+# phase 9: VOID1500 density (1500 sparse pixels an image, drawn from the
+# seed), two images through evaluate_void and a third through the forced
+# loose rerun; TUM and Replica trees of 6 and 5 frames
+VOID_IMAGES, VOID_SPARSE, VOID_SEED = 2, 1500, 9
+TUM_FRAMES, REPLICA_FRAMES = 6, 5
+# phase 9b's bounds on the structured fake (exact plane normals, median
+# alignment to the sparse ground truth), written before its first chip run
+# from CPU rehearsals at 120x160 (valid-only AbsRel 0.041-0.056, validity
+# 0.93) and 240x320 (0.038-0.044, 0.99)
+VOID_FAKE_ABSREL, VOID_FAKE_VALIDITY = 0.06, 0.90
+# phase 9's K2 check on a recorded call: its first segments and the ones
+# that ran the most iterations, this many of each, against the plain
+# version, which solves one segment at a time
+K2_VOID_SLICE = 8
 
 
 def fail(msg: str):
@@ -149,13 +186,14 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return s.elapsed_time(e) / reps
 
 
-def profiled_ms(torch, fn, calls, names: tuple[str, ...]) -> tuple[float, dict]:
+def profiled_ms(torch, fn, calls, names: tuple[str, ...]) -> tuple[float | None, dict]:
     """Device time of one call from torch.profiler's CUDA activity over
     ``calls``: for each of ``names`` (kernels, and a memset the wrapper
     issues; each runs once a call) the mean duration of its records, since
     CUPTI, kept up between sessions (see main), may deliver only part of a
-    session's records.  Returns (ms, records seen per name); fails unless
-    every name was seen, no more often than the calls."""
+    session's records.  Returns (ms, records seen per name), ms None when
+    a name has no record (CUPTI delivered none of them); fails if a name
+    was seen more often than the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -169,8 +207,10 @@ def profiled_ms(torch, fn, calls, names: tuple[str, ...]) -> tuple[float, dict]:
                 if name in ev.name:
                     seen[name].append(ev.time_range.elapsed_us())
     counts = {name: len(us) for name, us in seen.items()}
-    if not all(1 <= n <= len(calls) for n in counts.values()):
+    if any(n > len(calls) for n in counts.values()):
         fail(f"torch.profiler saw {counts} records in {len(calls)} calls")
+    if not all(counts.values()):
+        return None, counts
     return sum(sum(us) / len(us) for us in seen.values()) / 1e3, counts
 
 
@@ -194,8 +234,9 @@ def device_ms(torch, fn, args, names: tuple[str, ...], min_calls: int = 20):
     its inputs in HBM, not in L2, by ``profiled_ms`` and ``replayed_ms``
     over the same calls, which cycle through copies of ``args`` that
     together hold 3x the L2 cache.  Where the two differ by more than 5 us
-    + 5%, both are measured again (a clock excursion during one of them);
-    fails if they differ three times."""
+    + 5% (a clock excursion during one of them), or the profiler delivered
+    no record of a name, both are measured again; fails if that happens
+    three times."""
     nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
     copies = max(2, -(-3 * L2_BYTES // nbytes))
     sets = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(copies)]
@@ -216,9 +257,10 @@ def device_ms(torch, fn, args, names: tuple[str, ...], min_calls: int = 20):
     for _ in range(3):
         prof_ms, counts = profiled_ms(torch, fn, calls, names)
         graph_ms = replayed_ms(torch, graph, len(calls))
-        seen.append(f"profiler {prof_ms * 1e3:.2f} us ({counts} records in {len(calls)} "
-                    f"calls), graph replay {graph_ms * 1e3:.2f} us")
-        if abs(graph_ms - prof_ms) <= 5e-3 + 0.05 * graph_ms:
+        prof = "no record" if prof_ms is None else f"{prof_ms * 1e3:.2f} us"
+        seen.append(f"profiler {prof} ({counts} records in {len(calls)} calls), graph replay "
+                    f"{graph_ms * 1e3:.2f} us")
+        if prof_ms is not None and abs(graph_ms - prof_ms) <= 5e-3 + 0.05 * graph_ms:
             return prof_ms, graph_ms
     fail(f"device times of {names} disagree: " + "; ".join(seen))
 
@@ -365,6 +407,100 @@ def k2_row(torch, stencil, b, x0, maskf, diag, *rest, label="") -> dict:
             "max_iters": max_it, "us_per_iter": us_per_iter, "exact_segments": sum(same),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops, **({"case": label} if label else {})}
+
+
+@contextlib.contextmanager
+def k2_calls(torch, stencil):
+    """While open, every ``stencil.bini_cg`` call is logged (field shape,
+    max_iter, tol, iterations summed and the longest segment's), and host
+    copies are kept of the call with the most segments and of the call
+    whose longest segment ran the most iterations (the first of each; one
+    copy where they are one call).  Yields {"log": [...], "kept": [(label,
+    args), ...]}, ``kept`` filled when the block ends."""
+    seen = {"log": [], "kept": []}
+    best = {"most segments": (-1, None), "most iterations": (-1, None)}
+    copies = {}
+    wrapped = stencil.bini_cg
+
+    def spy(*args):
+        x, it = wrapped(*args)
+        call = len(seen["log"])
+        N, H, W = args[0].shape
+        longest = int(it.max()) if N else 0
+        seen["log"].append({"shape": [N, H, W], "max_iter": int(args[8]),
+                            "tol": float(args[9]), "iters": int(it.sum()),
+                            "longest": longest})
+        for label, score in (("most segments", N), ("most iterations", longest)):
+            if score > best[label][0]:
+                best[label] = (score, call)
+                if call not in copies:
+                    copies[call] = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        for c in list(copies):
+            if all(c != b[1] for b in best.values()):
+                del copies[c]
+        return x, it
+
+    stencil.bini_cg = spy
+    try:
+        yield seen
+    finally:
+        stencil.bini_cg = wrapped
+        by_call = {}
+        for label, (_, call) in best.items():
+            if call is not None:
+                by_call.setdefault(call, []).append(label)
+        seen["kept"] = [(" and ".join(labels), copies[c]) for c, labels in sorted(by_call.items())]
+
+
+def k2_void_row(torch, stencil, args, label: str) -> dict:
+    """K2 on one whole recorded call of the VOID path, on the card: the call
+    timed; its first ``K2_VOID_SLICE`` segments and the ``K2_VOID_SLICE``
+    that ran the most iterations against the plain version at the call's
+    own max_iter and tol (solution within 1e-4 x max|x|, each residual
+    within 1.5x of the plain one, equal iterations where the solutions are
+    equal), the plain version timed on those segments (``plain_segments``).
+    The bound is the whole call's: 8 fields read, x written, 33 flops a
+    pixel for each iteration it ran."""
+    args = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    b, x0, maskf, diag, *qs = args[:8]
+    max_iter, tol = args[8:]
+    N, H, W = b.shape
+    plan = stencil.cg_plan(H, W)
+    x_k, it_k = stencil.bini_cg(*args)
+    ms = time_ms(torch, lambda: stencil.bini_cg(*args), reps=3)
+    most = it_k.argsort(descending=True)[:K2_VOID_SLICE].tolist()
+    idx = sorted(set(range(min(K2_VOID_SLICE, N))) | set(most))
+    sel = torch.tensor(idx, device=b.device)
+    part = [a.index_select(0, sel).contiguous() if torch.is_tensor(a) else a for a in args]
+    got, its = x_k.index_select(0, sel), it_k.index_select(0, sel)
+    plain = []
+    plain_ms = host_ms(torch, lambda: plain.append(stencil.bini_cg_reference(*part)))
+    x_r, it_r = plain[0]
+    err = float((got - x_r).abs().max())
+    scale = float(x_r.abs().max())
+    res_k = masked_residual(torch, stencil, got, part[0], part[2], part[4:8])
+    res_r = masked_residual(torch, stencil, x_r, part[0], part[2], part[4:8])
+    res_ratio = float((res_k / res_r.clamp(min=1e-30)).max())
+    same = [bool(torch.equal(a, c)) for a, c in zip(got, x_r)]
+    iters_agree = all(int(i) == int(j) for i, j, sm in zip(its, it_r, same) if sm)
+    iters, max_it = int(it_k.sum()), int(it_k.max())
+    nbytes, flops = 9 * N * H * W * 4, K2_FLOPS_PER_PIXEL_ITER * iters * H * W
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"K2 {N}x{H}x{W} VOID, {label}, max_iter {max_iter} tol {tol:g}, plan (cluster, "
+          f"threads, smem) {tuple(plan)}: {len(idx)} segments checked (iterations "
+          f"{[int(i) for i in its]}, plain {[int(i) for i in it_r]}): max abs err {err:.2e} "
+          f"(max|x| {scale:.2e}), residual ratio {res_ratio:.3f}; whole call {iters} "
+          f"iterations, longest segment {max_it}, kernel {ms:.3f} ms; plain {plain_ms:.1f} ms "
+          f"on the {len(idx)} segments; bound {b_ms * 1e3:.1f} us ({b_by})", flush=True)
+    if not (err <= 1e-4 * scale and res_ratio <= 1.5 and iters_agree):
+        fail(f"K2 disagrees with its plain version on the VOID call {N}x{H}x{W} ({label})")
+    return {"shape": [N, H, W], "call": label, "max_iter": max_iter, "tol": tol,
+            "plan": list(plan), "checked_segments": idx, "max_abs_err": err,
+            "max_abs_x": scale, "residual_ratio": res_ratio,
+            "checked_iters": [int(i) for i in its], "plain_iters": [int(i) for i in it_r],
+            "exact_segments": sum(same), "iters": iters, "max_iters": max_it, "ms": ms,
+            "plain_ms": plain_ms, "plain_segments": len(idx), "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "flops": flops}
 
 
 def check_k1(torch, bini, stencil):
@@ -1330,6 +1466,334 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     return launches, k2_rows, k3_rows, summary
 
 
+@contextlib.contextmanager
+def slab_counts(k3):
+    """While open, counts the slabs K3's wrapper is given (``n``) and its
+    calls (``calls``)."""
+    seen = {"n": 0, "calls": 0}
+    wrapped = k3.phase_counts
+
+    def spy(x, *rest):
+        seen["n"] += int(x.shape[0])
+        seen["calls"] += 1
+        return wrapped(x, *rest)
+
+    k3.phase_counts = spy
+    try:
+        yield seen
+    finally:
+        k3.phase_counts = wrapped
+
+
+@contextlib.contextmanager
+def stats_path_counts(predictor, k3):
+    """While open, counts the calls of ``predictor.predict_points_with_stats``
+    (the loose rerun's route to K3), their prompts and the K3 launches made
+    inside them."""
+    seen = {"calls": 0, "prompts": 0, "k3_launches": 0}
+    wrapped = predictor.predict_points_with_stats
+
+    def spy(pts, *args, **kwargs):
+        before = k3.launch_counts["phase_counts"]
+        out = wrapped(pts, *args, **kwargs)
+        seen["calls"] += 1
+        seen["prompts"] += len(pts)
+        seen["k3_launches"] += k3.launch_counts["phase_counts"] - before
+        return out
+
+    predictor.predict_points_with_stats = spy
+    try:
+        yield seen
+    finally:
+        del predictor.predict_points_with_stats
+
+
+def loader_config_file(pkg_dir: Path, out: Path, name: str, base: str, dataset: dict,
+                       save_path: Path) -> Path:
+    """A copy of the port's config ``base`` with ``dataset`` replaced and
+    the GN/LM solvers for tracking and mapping, written to ``out/name``."""
+    import yaml
+
+    cfg = yaml.safe_load((pkg_dir / "configs" / base).read_text())
+    cfg.update(dataset=dataset, save_path=str(save_path))
+    align = cfg.setdefault("alignment", {})
+    align.setdefault("mapping", {})["solver"] = "gn"
+    if "track" in align:
+        align["track"]["solver"] = "gn"
+    path = out / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -> dict:
+    """Phase 9a: ``evaluate_void --sam-ckpt --nnet-ckpt`` on the VOID config
+    unchanged over the first images of the tree, then one more image through
+    ``DepthCompletion(invalid_ratio_thresh=0.0)``, so that the loose rerun
+    and with it K3's statistics path run.  The weights are phase 8's
+    frontend's (at a trained net's scale, random SAM weights leave no
+    candidate stable at the config's 0.9).  Records K2's and K3's
+    inputs."""
+    import numpy as np
+
+    from super_primitive_tpu_torch import evaluate_void
+    from super_primitive_tpu_torch.convert import nnet_to_flax, sam_to_flax, save_npz_tree
+    from super_primitive_tpu_torch.data.void import VoidDataset
+    from super_primitive_tpu_torch.depth_completion.completion import DepthCompletion
+    from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
+    from super_primitive_tpu_torch.nets.synth import synth_nnet_state_dict, synth_sam_state_dict
+    from super_primitive_tpu_torch.utils.timing import StageTimer
+
+    t0 = time.perf_counter()
+    save_npz_tree(work / "sam.npz", sam_to_flax(synth_sam_state_dict(VIT_H), depth=VIT_H.depth))
+    save_npz_tree(work / "nnet.npz", nnet_to_flax(synth_nnet_state_dict()))
+    trees_s = time.perf_counter() - t0
+    cfg_path = pkg_dir / "configs" / "void_dataset.yaml"
+    torch.cuda.reset_peak_memory_stats()
+    # every K2 call logged, the largest and the longest-running kept whole;
+    # K3's first call at each slab count
+    with k2_calls(torch, stencil) as k2_seen, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs, slab_counts(k3) as slabs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = evaluate_void.main(["--dataset", str(work / "void"), "--config", str(cfg_path),
+                                  "--sam-ckpt", str(work / "sam.npz"),
+                                  "--nnet-ckpt", str(work / "nnet.npz"),
+                                  "--max-images", str(VOID_IMAGES)])
+        cli_s = time.perf_counter() - t0
+        cli = {"launches": {**stencil.launch_counts, **k3.launch_counts},
+               "k3_slabs": slabs["n"], "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+        fe = res["completion"].frontend
+        sample = VoidDataset(str(work / "void"))[VOID_IMAGES]
+        dc = DepthCompletion(fe, invalid_ratio_thresh=0.0)
+        fe.timer = dc.timer = StageTimer("cuda")
+        before = {**stencil.launch_counts, **k3.launch_counts}
+        slabs0 = slabs["n"]
+        torch.cuda.reset_peak_memory_stats()
+        with stats_path_counts(fe.mask_predict_fn.predictor, k3) as stats:
+            t0 = time.perf_counter()
+            depths, invalid = dc.depth_completion(sample["image"], sample["intrinsics"],
+                                                  sample["sparse_depth"])
+            torch.cuda.synchronize()
+            loose_s = time.perf_counter() - t0
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    loose = {"wall_s": loose_s, "segments": list(dc.segments),
+             "stage_s": {k: round(v, 4) for k, v in fe.timer.totals.items()},
+             "launches": {k: launches[k] - before[k] for k in launches},
+             "k3_slabs": slabs["n"] - slabs0, "stats_path": stats,
+             "validity_rate": float((depths > 1e-6).mean()),
+             "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+    for name, run in (("evaluate_void", cli), ("loose image", loose)):
+        print(f"VOID real nets on {card}, {name}: launches {run['launches']}, K3 slabs "
+              f"{run['k3_slabs']}, peak memory {run['peak_GiB']:.2f} GiB", flush=True)
+    print(f"VOID real nets, loose image: wall {loose_s:.2f} s, (segments, visible) per pass "
+          f"{dc.segments}, statistics path {stats}, "
+          f"validity {loose['validity_rate']:.3f}, stage seconds {json.dumps(loose['stage_s'])}",
+          flush=True)
+    if launches["bini_apply"] != 0:
+        fail("the VOID path launched K1")
+    if cli["launches"]["bini_cg"] == 0 or cli["launches"]["phase_counts"] == 0:
+        fail("evaluate_void on the real nets did not launch K2 and K3")
+    if stats["calls"] == 0 or stats["k3_launches"] == 0:
+        fail("the loose rerun did not take K3's statistics path")
+    if not (np.isfinite(depths).all() and (depths[~invalid] > 0).all()):
+        fail("the loose completion is not finite and positive where valid")
+    log = k2_seen["log"]
+    for call in log:
+        if not stencil.cg_holds(*call["shape"][1:]):
+            fail(f"a VOID K2 field {call['shape']} holds no K2 plan")
+    k2_log = {"calls": len(log), "segments": sorted({c["shape"][0] for c in log}),
+              "max_iter": sorted({c["max_iter"] for c in log}),
+              "tol": sorted({c["tol"] for c in log}),
+              "iters": sum(c["iters"] for c in log),
+              "longest": max((c["longest"] for c in log), default=0),
+              "calls_at_max_iter": sum(c["longest"] >= c["max_iter"] for c in log)}
+    print(f"K2 on the VOID path: {json.dumps(k2_log)}", flush=True)
+    summary = {"images": res["images"], "tables": res["tables"],
+               "validity_rates": res["validity_rates"],
+               "evaluate_void_s": cli_s, "trees_s": trees_s, "evaluate_void": cli,
+               "loose_image": loose, "k2_calls": k2_log}
+    recorded = {"bini_cg": k2_seen["kept"], "phase_counts": list(k3_inputs.values())}
+    return summary, recorded
+
+
+def run_void_fake(torch, stencil, k3, pkg_dir: Path, work: Path, seq) -> dict:
+    """Phase 9b: the structured fake (exact plane normals, the device SAM
+    selection) completes the same images through ``DepthCompletion``; gated
+    on the valid-only AbsRel against ground truth and the validity rate."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.config import load_config
+    from super_primitive_tpu_torch.data.void import VoidDataset
+    from super_primitive_tpu_torch.depth_completion import metrics as M
+    from super_primitive_tpu_torch.depth_completion.completion import DepthCompletion
+    from super_primitive_tpu_torch.frontend.fakes import StructuredFakeFrontend
+
+    cfg = load_config(str(pkg_dir / "configs" / "void_dataset.yaml"))
+    fe = StructuredFakeFrontend(cfg, scene=seq.scene, n_cells=64, device="cuda",
+                                device_sam=True)
+    dc = DepthCompletion(fe)
+    ds = VoidDataset(str(work / "void"))
+    rows = []
+    stencil.reset_launch_counts()
+    k3.reset_launch_counts()
+    for i in range(VOID_IMAGES):
+        s = ds[i]
+        fe.observe(seq[i])
+        t0 = time.perf_counter()
+        depths, invalid = dc.depth_completion(s["image"], s["intrinsics"], s["sparse_depth"])
+        wall = time.perf_counter() - t0
+        m = M.ErrorMetrics()
+        m.compute(depths, s["gt_depth"], (depths > 1e-6) & s["gt_valid"])
+        rows.append({"absrel": float(m.absrel), "rmse_mm": float(m.rmse), "segments": dc.segments,
+                     "validity_rate": float((depths > 1e-6).mean()), "wall_s": wall})
+    launches = {**stencil.launch_counts, **k3.launch_counts}
+    print(f"VOID structured fake: {json.dumps(rows)}; launches {launches}; bounds AbsRel <= "
+          f"{VOID_FAKE_ABSREL}, validity >= {VOID_FAKE_VALIDITY}", flush=True)
+    if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
+        fail("the structured-fake VOID run did not launch K2 and K3")
+    for r in rows:
+        if not (r["absrel"] <= VOID_FAKE_ABSREL and r["validity_rate"] >= VOID_FAKE_VALIDITY):
+            fail(f"the structured-fake completion misses its bounds: {r}")
+    return {"images": rows, "launches": launches}
+
+
+def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -> dict:
+    """Phase 9c: TUM and Replica trees decode to the arrays written; a
+    ``run_sfm --odom --fake-frontend`` over the TUM tree, a ``tum_undistort``
+    read of it, and a two-frame ``run_sfm --fake-frontend`` on the Replica
+    tree, each ending finite; decode ms per 480x640 frame."""
+    import numpy as np
+
+    from super_primitive_tpu_torch import run_sfm
+    from super_primitive_tpu_torch.data.image_io import read_png, read_rgb
+    from super_primitive_tpu_torch.data.replica import ReplicaDataset
+    from super_primitive_tpu_torch.data.transforms import scale_and_filter_depth
+    from super_primitive_tpu_torch.data.tum import (
+        DEPTH_SCALE,
+        MAX_DEPTH,
+        TUMDataset,
+        TUMUndistortDataset,
+    )
+    from super_primitive_tpu_torch.eval.dataset_trees import (
+        depth_u16,
+        image_u8,
+        write_replica_tree,
+        write_tum_tree,
+    )
+
+    K = [float(v) for v in (seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])]
+    tum = write_tum_tree(work / "tum", seq, TUM_FRAMES)
+    replica = write_replica_tree(work / "replica", seq, REPLICA_FRAMES)
+    ds = TUMDataset(str(tum), traj_file=str(tum / "groundtruth.txt"), intrinsics=K)
+    rgb_ms, depth_ms = [], []
+    for i in range(TUM_FRAMES):
+        t0 = time.perf_counter()
+        img = read_rgb(str(tum / ds.rgb_files[i]))
+        t1 = time.perf_counter()
+        dep = read_png(str(tum / ds.depth_files[i]))
+        t2 = time.perf_counter()
+        rgb_ms.append((t1 - t0) * 1e3)
+        depth_ms.append((t2 - t1) * 1e3)
+        f = ds[i]
+        if not (np.array_equal(img, image_u8(seq[i])) and np.array_equal(f["image"], img)
+                and np.array_equal(dep, depth_u16(seq[i]["depth"], 5000.0))
+                and np.array_equal(f["depth"], scale_and_filter_depth(dep, DEPTH_SCALE,
+                                                                      MAX_DEPTH))):
+            fail(f"TUM frame {i} does not decode to the arrays written")
+    und = TUMUndistortDataset(str(tum), traj_file=str(tum / "groundtruth.txt"))
+    for i in range(TUM_FRAMES):
+        f = und[i]
+        want = scale_and_filter_depth(depth_u16(seq[i]["depth"], 5000.0)[16:-16, 32:-32],
+                                      DEPTH_SCALE, MAX_DEPTH)
+        if f["image"].shape != (448, 576, 3) or not np.array_equal(f["depth"], want):
+            fail(f"tum_undistort frame {i}: image {f['image'].shape} or its depth crop differs")
+    rep = ReplicaDataset(str(replica), intrinsics=K)
+    for i in range(REPLICA_FRAMES):
+        f = rep[i]
+        if not (np.array_equal(f["image"], image_u8(seq[i]))
+                and np.array_equal(read_png(str(replica / "depth" / f"depth_{i}.png")),
+                                   depth_u16(seq[i]["depth"], 1000.0))
+                and np.allclose(f["T"], seq[i]["T"], atol=1e-6)):
+            fail(f"Replica frame {i} does not decode to the arrays written")
+
+    odom_cfg = loader_config_file(
+        pkg_dir, work, "tum_odom.yaml", "planes_odom.yaml",
+        {"type": "tum", "path": str(tum), "traj_file": str(tum / "groundtruth.txt"),
+         "intrinsics": K}, work / "tum_out")
+    sfm_cfg = loader_config_file(
+        pkg_dir, work, "replica_sfm.yaml", "planes_sfm.yaml",
+        {"type": "replica", "path": str(replica), "intrinsics": K, "source_id": 0,
+         "target_id": 4}, work / "replica_out")
+    stencil.reset_launch_counts()
+    k3.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_sfm.main(["--config", str(odom_cfg), "--odom", "--fake-frontend",
+                  "--max-frames", str(TUM_FRAMES)])
+    odom_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_sfm.main(["--config", str(sfm_cfg), "--fake-frontend"])
+    sfm_s = time.perf_counter() - t0
+    launches = {**stencil.launch_counts, **k3.launch_counts}
+    traj = np.loadtxt(work / "tum_out" / "converted_tum_traj.txt", ndmin=2)
+    result = np.load(work / "replica_out" / "two_frame_result.npz")
+    finite = bool(np.isfinite(traj).all() and np.isfinite(result["pose"]).all()
+                  and np.isfinite(result["kp_logdepth"]).all())
+    out = {"rgb_decode_ms": rgb_ms, "depth_decode_ms": depth_ms,
+           "rgb_decode_ms_mean": float(np.mean(rgb_ms[1:])),
+           "depth_decode_ms_mean": float(np.mean(depth_ms[1:])),
+           "tum_odom_s": odom_s, "tum_keyframes": int(traj.shape[0]),
+           "replica_two_frame_s": sfm_s, "launches": launches, "finite": finite}
+    print(f"loaders on {card}: decode ms per 480x640 frame, RGB "
+          f"{out['rgb_decode_ms_mean']:.1f}, 16-bit depth {out['depth_decode_ms_mean']:.1f} "
+          f"(first frames {rgb_ms[0]:.1f} / {depth_ms[0]:.1f}); TUM odometry {odom_s:.2f} s, "
+          f"{traj.shape[0]} keyframes; Replica two-frame {sfm_s:.2f} s; launches {launches}",
+          flush=True)
+    if not finite:
+        fail("the TUM odometry or the Replica two-frame run ended non-finite")
+    return out
+
+
+def run_void(torch, stencil, k3, pkg_dir: Path, card: str):
+    """Phase 9: VOID depth completion at full width (9a real nets, 9b the
+    structured fake) and the TUM, Replica and VOID loaders (9c); then K2
+    against its plain version on slices of the VOID path's largest and
+    longest-running calls, timed on each whole call, and K3, timed, on the
+    path's first call at each slab count."""
+    import shutil
+
+    from super_primitive_tpu_torch.data.synthetic import PlanesSequence
+    from super_primitive_tpu_torch.eval.dataset_trees import write_void_tree
+
+    t_phase = time.perf_counter()
+    work = Path("build") / "chip_smoke" / "void"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    seq = PlanesSequence(n_frames=max(TUM_FRAMES, REPLICA_FRAMES, VOID_IMAGES + 1), H=480,
+                         W=640)
+    write_void_tree(work / "void", seq, VOID_IMAGES + 1, n_sparse=VOID_SPARSE, seed=VOID_SEED)
+    real, recorded = run_void_real(torch, stencil, k3, pkg_dir, work, seq, card)
+    torch.cuda.empty_cache()
+    k2_rows = [k2_void_row(torch, stencil, args, label) for label, args in recorded["bini_cg"]]
+    k3_rows = [k3_row(torch, k3, *args) for args in recorded["phase_counts"]]
+    for row, args in zip(k3_rows, recorded["phase_counts"]):
+        row["undecided_share"] = undecided_share(torch, k3, *args)
+    del recorded
+    torch.cuda.empty_cache()
+    fake = run_void_fake(torch, stencil, k3, pkg_dir, work, seq)
+    loaders = run_loaders(torch, stencil, k3, pkg_dir, work, seq, card)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {k: real["evaluate_void"]["launches"][k] + real["loose_image"]["launches"][k]
+                for k in real["evaluate_void"]["launches"]}
+    summary = {"real_nets": real, "structured_fake": fake, "loaders": loaders,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"VOID phase on {card}: {summary['phase_s']:.1f} s; K3 on the VOID path's inputs: "
+          + ", ".join(f"{r['shape'][0]} slabs exact, device {r['device_ms'] * 1e3:.2f} us, "
+                      f"{100 * r['undecided_share']:.2f}% to the full path" for r in k3_rows),
+          flush=True)
+    return launches, k2_rows, k3_rows, summary
+
+
 def main() -> int:
     # torch.profiler tears CUPTI down after each session and sets it up again
     # at the next; once CUDA graphs have run (device_ms replays them) a later
@@ -1379,6 +1843,18 @@ def main() -> int:
     vo_gn_launches, vo_gn = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
     rn_launches, k2_rn, k3_rn, rn = run_real_nets(torch, stencil, k3,
                                                   Path(pkg.__file__).resolve().parent, smi)
+    void_launches, k2_void, k3_void, void = run_void(torch, stencil, k3,
+                                                     Path(pkg.__file__).resolve().parent, smi)
+
+    def path_sums(rows):
+        """A path's kernel numbers summed over its recorded inputs."""
+        b_ms, b_by = bound_ms(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
+        dev = [r.get("device_ms") for r in rows]
+        lib = [r.get("library_ms") for r in rows]
+        return {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+                **({} if None in dev else {"device_ms": sum(dev)}),
+                "library_ms": None if None in lib else sum(lib), "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
     def entry(name, replaces, launches, path_rows, other_rows, **extra):
         """One kernel's line: its numbers summed over the path's recorded
@@ -1408,26 +1884,32 @@ def main() -> int:
                                 "two_frame_gn": tf_gn_launches["bini_apply"],
                                 "vo": vo_launches["bini_apply"],
                                 "vo_gn": vo_gn_launches["bini_apply"],
-                                "real_nets": rn_launches["bini_apply"]}),
+                                "real_nets": rn_launches["bini_apply"],
+                                "void": void_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
               vo_launches["bini_cg"], k2_vo, k2,
               launches_by_path={"two_frame": k2_launches["bini_cg"],
                                 "two_frame_gn": tf_gn_launches["bini_cg"],
                                 "vo": vo_launches["bini_cg"],
                                 "vo_gn": vo_gn_launches["bini_cg"],
-                                "real_nets": rn_launches["bini_cg"]},
-              two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn),
+                                "real_nets": rn_launches["bini_cg"],
+                                "void": void_launches["bini_cg"]},
+              two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn,
+              void_path_shapes=k2_void, void_path=path_sums(k2_void)),
         entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
               vo_launches["phase_counts"], k3_vo, k3_checks,
               launches_by_path={"two_frame_gn": tf_gn_launches["phase_counts"],
                                 "vo": vo_launches["phase_counts"],
                                 "vo_gn": vo_gn_launches["phase_counts"],
-                                "real_nets": rn_launches["phase_counts"]},
-              real_nets_path_shapes=k3_rn),
+                                "real_nets": rn_launches["phase_counts"],
+                                "void": void_launches["phase_counts"]},
+              real_nets_path_shapes=k3_rn, void_path_shapes=k3_void,
+              void_path=path_sums(k3_void)),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))
     print(json.dumps({"real_nets": rn}))
+    print(json.dumps({"void": void}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

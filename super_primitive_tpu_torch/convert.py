@@ -14,6 +14,12 @@ carry the published torch names: the inverse of the JAX converter's
 layouts (Dense kernels transposed, conv kernels (kh, kw, in, out) ->
 (out, in, kh, kw), the ConvTranspose kernels flipped back, the Conv1d refine
 heads from 1x1 convs, BatchNorm statistics from ``batch_stats``).
+
+``sam_to_flax`` and ``nnet_to_flax`` are the port's copies of that JAX
+converter (published state dict -> tree), and ``save_npz_tree`` writes a
+tree as ``convert_checkpoints.py`` does, so the port can make the ``.npz``
+files its CLIs read (``chip_smoke.py`` does, from ``nets/synth.py``
+weights).
 """
 
 from __future__ import annotations
@@ -243,3 +249,160 @@ def nnet_state_dict(sd) -> dict:
             continue
         out[k] = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     return out
+
+
+def save_npz_tree(path, tree: dict):
+    """Write ``tree`` under ``"tree"`` in an ``.npz``, the layout
+    ``convert_checkpoints.py`` writes (it compresses; float weights hardly
+    compress, so this does not), which ``load_npz_tree`` reads."""
+    np.savez(path, tree=np.asarray(tree, dtype=object))
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _dense_tree(sd, name):
+    return {"kernel": _np(sd[f"{name}.weight"]).T, "bias": _np(sd[f"{name}.bias"])}
+
+
+def _conv_tree(sd, name, bias=True):
+    out = {"kernel": _np(sd[f"{name}.weight"]).transpose(2, 3, 1, 0)}
+    if bias:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _conv_transpose_tree(sd, name):
+    w = _np(sd[f"{name}.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1]
+    return {"kernel": np.ascontiguousarray(w), "bias": _np(sd[f"{name}.bias"])}
+
+
+def _ln_tree(sd, name, key="scale"):
+    return {key: _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
+
+
+def _bn_tree(sd, name):
+    return (_ln_tree(sd, name),
+            {"mean": _np(sd[f"{name}.running_mean"]), "var": _np(sd[f"{name}.running_var"])})
+
+
+def sam_to_flax(sd: dict, depth: int = 32) -> dict:
+    """The JAX package's SAM tree from a segment-anything state dict
+    (``nets/convert.convert_sam``); ``depth`` ViT blocks."""
+    E = "image_encoder"
+    enc: dict = {"patch_embed": _conv_tree(sd, f"{E}.patch_embed.proj"),
+                 "pos_embed": _np(sd[f"{E}.pos_embed"])}
+    for i in range(depth):
+        p = f"{E}.blocks.{i}"
+        enc[f"block{i}"] = {
+            "norm1": _ln_tree(sd, f"{p}.norm1"),
+            "norm2": _ln_tree(sd, f"{p}.norm2"),
+            "attn": {"qkv": _dense_tree(sd, f"{p}.attn.qkv"),
+                     "proj": _dense_tree(sd, f"{p}.attn.proj"),
+                     "rel_pos_h": _np(sd[f"{p}.attn.rel_pos_h"]),
+                     "rel_pos_w": _np(sd[f"{p}.attn.rel_pos_w"])},
+            "mlp_lin1": _dense_tree(sd, f"{p}.mlp.lin1"),
+            "mlp_lin2": _dense_tree(sd, f"{p}.mlp.lin2"),
+        }
+    enc["neck_conv1"] = _conv_tree(sd, f"{E}.neck.0", bias=False)
+    enc["neck_ln1"] = _ln_tree(sd, f"{E}.neck.1", "weight")
+    enc["neck_conv2"] = _conv_tree(sd, f"{E}.neck.2", bias=False)
+    enc["neck_ln2"] = _ln_tree(sd, f"{E}.neck.3", "weight")
+
+    P = "prompt_encoder"
+    pe: dict = {
+        "pe_layer": {"positional_encoding_gaussian_matrix":
+                     _np(sd[f"{P}.pe_layer.positional_encoding_gaussian_matrix"])},
+        "not_a_point_embed": _np(sd[f"{P}.not_a_point_embed.weight"])[0],
+        "no_mask_embed": _np(sd[f"{P}.no_mask_embed.weight"])[0],
+    }
+    for i in range(4):
+        pe[f"point_embed_{i}"] = _np(sd[f"{P}.point_embeddings.{i}.weight"])[0]
+
+    def attn_ds(p):
+        return {proj: _dense_tree(sd, f"{p}.{proj}")
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    D = "mask_decoder"
+    dec: dict = {
+        "iou_token": _np(sd[f"{D}.iou_token.weight"]),
+        "mask_tokens": _np(sd[f"{D}.mask_tokens.weight"]),
+        "upscale_conv1": _conv_transpose_tree(sd, f"{D}.output_upscaling.0"),
+        "upscale_ln": _ln_tree(sd, f"{D}.output_upscaling.1", "weight"),
+        "upscale_conv2": _conv_transpose_tree(sd, f"{D}.output_upscaling.3"),
+        "iou_head": {f"layers{j}": _dense_tree(sd, f"{D}.iou_prediction_head.layers.{j}")
+                     for j in range(3)},
+    }
+    for i in range(4):
+        dec[f"hypernet{i}"] = {
+            f"layers{j}": _dense_tree(sd, f"{D}.output_hypernetworks_mlps.{i}.layers.{j}")
+            for j in range(3)}
+    tr: dict = {}
+    for i in range(2):
+        p = f"{D}.transformer.layers.{i}"
+        tr[f"layer{i}"] = {
+            **{a: attn_ds(f"{p}.{a}") for a in
+               ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token")},
+            **{n: _ln_tree(sd, f"{p}.{n}") for n in ("norm1", "norm2", "norm3", "norm4")},
+            "mlp_lin1": _dense_tree(sd, f"{p}.mlp.lin1"),
+            "mlp_lin2": _dense_tree(sd, f"{p}.mlp.lin2"),
+        }
+    tr["final_attn_token_to_image"] = attn_ds(f"{D}.transformer.final_attn_token_to_image")
+    tr["norm_final_attn"] = _ln_tree(sd, f"{D}.transformer.norm_final_attn")
+    dec["transformer"] = tr
+    return {"image_encoder": enc, "prompt_encoder": pe, "mask_decoder": dec}
+
+
+B5_REPEATS = (3, 5, 5, 7, 7, 9, 3)
+
+
+def nnet_to_flax(sd: dict) -> dict:
+    """The JAX package's NNET {params, batch_stats} tree from a scannet state
+    dict (``nets/convert.convert_nnet``)."""
+    E, D = "encoder.original_model", "decoder"
+    enc_p: dict = {}
+    enc_s: dict = {}
+    p_bn, s_bn = _bn_tree(sd, f"{E}.bn1")
+    enc_p["stem"] = {"conv": _conv_tree(sd, f"{E}.conv_stem", bias=False), "bn": p_bn}
+    enc_s["stem"] = {"bn": s_bn}
+    for si, reps in enumerate(B5_REPEATS):
+        for bi in range(reps):
+            b, dst = f"{E}.blocks.{si}.{bi}", f"blocks_{si}_{bi}"
+            se = {"conv_reduce": _conv_tree(sd, f"{b}.se.conv_reduce"),
+                  "conv_expand": _conv_tree(sd, f"{b}.se.conv_expand")}
+            dw = _conv_tree(sd, f"{b}.conv_dw", bias=False)
+            p1, s1 = _bn_tree(sd, f"{b}.bn1")
+            p2, s2 = _bn_tree(sd, f"{b}.bn2")
+            if si == 0:  # DepthwiseSeparable: conv_dw/bn1, se, conv_pw/bn2
+                enc_p[dst] = {"dw_conv": dw, "dw_bn": p1, "se": se,
+                              "pw": {"conv": _conv_tree(sd, f"{b}.conv_pw", bias=False),
+                                     "bn": p2}}
+                enc_s[dst] = {"dw_bn": s1, "pw": {"bn": s2}}
+            else:  # InvertedResidual: conv_pw/bn1, conv_dw/bn2, se, conv_pwl/bn3
+                p3, s3 = _bn_tree(sd, f"{b}.bn3")
+                enc_p[dst] = {"pw": {"conv": _conv_tree(sd, f"{b}.conv_pw", bias=False),
+                                     "bn": p1},
+                              "dw_conv": dw, "dw_bn": p2, "se": se,
+                              "pwl": {"conv": _conv_tree(sd, f"{b}.conv_pwl", bias=False),
+                                      "bn": p3}}
+                enc_s[dst] = {"pw": {"bn": s1}, "dw_bn": s2, "pwl": {"bn": s3}}
+    enc_p["head_conv"] = _conv_tree(sd, f"{E}.conv_head", bias=False)
+    params: dict = {"encoder": enc_p, "conv2": _conv_tree(sd, f"{D}.conv2")}
+    stats: dict = {"encoder": enc_s}
+    for up in ("up1", "up2", "up3", "up4"):
+        p0, s0 = _bn_tree(sd, f"{D}.{up}._net.1")
+        p1, s1 = _bn_tree(sd, f"{D}.{up}._net.4")
+        params[up] = {"conv0": _conv_tree(sd, f"{D}.{up}._net.0"), "bn0": p0,
+                      "conv1": _conv_tree(sd, f"{D}.{up}._net.3"), "bn1": p1}
+        stats[up] = {"bn0": s0, "bn1": s1}
+    params["out_conv_res8"] = _conv_tree(sd, f"{D}.out_conv_res8")
+
+    def conv1d(name):  # (out, in, 1) -> (1, 1, in, out)
+        w = _np(sd[f"{name}.weight"])
+        return {"kernel": w[:, :, 0].T.reshape(1, 1, w.shape[1], w.shape[0]),
+                "bias": _np(sd[f"{name}.bias"])}
+
+    for head in ("out_conv_res4", "out_conv_res2", "out_conv_res1"):
+        params[head] = {f"conv{j}": conv1d(f"{D}.{head}.{2 * j}") for j in range(4)}
+    return {"params": params, "batch_stats": stats}

@@ -181,27 +181,22 @@ def active_sample_pos(
     return np.clip(norm + jitter, -1, 1).astype(np.float32)
 
 
+def _edges(f: torch.Tensor) -> np.ndarray:
+    """Max Scharr magnitude over (N, H, W) float32 masks on their device,
+    reflect-padded Scharr/32; the (H, W) map on the host."""
+    gx, gy = scharr_gradients(f.permute(1, 2, 0), reflect_padding=True)
+    return torch.amax(torch.sqrt(gx**2 + gy**2), dim=-1).cpu().numpy()
+
+
 def masks_to_edges(masks: np.ndarray, device: str | torch.device = "cuda") -> np.ndarray:
     """Max Scharr magnitude over (N, H, W) masks, reflect-padded Scharr/32,
     computed on ``device``; returns the (H, W) float32 map on the host."""
-    f = torch.from_numpy(np.ascontiguousarray(masks, dtype=np.float32)).to(device)
-    gx, gy = scharr_gradients(f.permute(1, 2, 0), reflect_padding=True)
-    return torch.amax(torch.sqrt(gx**2 + gy**2), dim=-1).cpu().numpy()
+    return _edges(torch.from_numpy(np.ascontiguousarray(masks, dtype=np.float32)).to(device))
 
 
 def infer_edge_probs(masks: np.ndarray, device: str | torch.device = "cuda"):
     edges = masks_to_edges(masks, device)
     return edges, np.clip(1 - 2 * edges, 0, 1)
-
-
-def nearest_resize_batch(masks: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """(N, H, W) nearest resize with torch F.interpolate(mode='nearest')
-    index semantics: src = floor(dst * H_in / H_out)."""
-    Ho, Wo = hw
-    Hi, Wi = masks.shape[-2:]
-    ri = (np.arange(Ho) * Hi) // Ho
-    ci = (np.arange(Wo) * Wi) // Wo
-    return masks[..., ri[:, None], ci[None, :]]
 
 
 def bilinear_resize_ac(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
@@ -231,8 +226,15 @@ def infer_edge_probs_coarse(
 
     Returns (edges, edge_probs, edges_coarse, edge_probs_coarse)."""
     H, W = masks.shape[-2:]
-    masks_coarse = nearest_resize_batch(masks.astype(np.float32), edge_probs_shape) > 0.5
-    edges_coarse, probs_coarse = infer_edge_probs(masks_coarse, device)
+    Ho, Wo = edge_probs_shape
+    # nearest resize with torch F.interpolate(mode='nearest') indices,
+    # src = floor(dst * H_in / H_out), on the device (the masks go up as
+    # bool; depth completion's loose rerun has thousands)
+    ri = torch.from_numpy((np.arange(Ho) * H) // Ho).to(device)
+    ci = torch.from_numpy((np.arange(Wo) * W) // Wo).to(device)
+    m = torch.from_numpy(np.ascontiguousarray(masks, dtype=bool)).to(device)
+    edges_coarse = _edges(m[:, ri][:, :, ci].to(torch.float32))
+    probs_coarse = np.clip(1 - 2 * edges_coarse, 0, 1)
     edges = bilinear_resize_ac(edges_coarse, (H, W))
     probs = bilinear_resize_ac(probs_coarse, (H, W))
     return edges, probs, edges_coarse, probs_coarse

@@ -7,9 +7,11 @@ threshold), erase those pixels, split what remains of every segment into
 4-connected components, keep the parts above an area ratio, and re-seed
 one keypoint per part from the caller's generator.
 
-The discontinuities and the labels are computed on the whole (N, H, W)
-stack on the frontend's device; the JAX package computes them on bbox
-crops, which gives the same pixels.  Parts come in ascending label order,
+The discontinuities and the labels are computed on full-frame (N, H, W)
+stacks on the frontend's device, :data:`SPLIT_CHUNK_PIXELS` segment pixels
+at a time (each segment's result depends on its own mask alone); the JAX
+package computes them on bbox crops, which gives the same pixels.  Parts
+come in ascending label order,
 and labels are row-major minimum indices, so a full-frame labelling and a
 crop labelling order the parts alike and the generator draws the same
 numbers.
@@ -24,6 +26,11 @@ import torch.nn.functional as F
 from ..image.gradients import scharr_gradients
 from ..ops.connected_components import label_components
 from ..utils.numerics import sqrt_rn
+
+# segment pixels a device pass of the split takes: 436 segments at
+# 480x640, whose int64 labels and their scans hold about 8 GB (VOID's
+# loose rerun gives thousands of segments at that size)
+SPLIT_CHUNK_PIXELS = 2**27
 
 
 def depth_discontinuity(logdepth: torch.Tensor, validity: torch.Tensor,
@@ -66,25 +73,33 @@ def split_disconnected_segments(
     N, H, W = regions.shape
     if N == 0:
         return regions, logdepth_perseg, keypoints_rc
-    with _stage("split_disc"):
-        reg_t = torch.from_numpy(np.ascontiguousarray(regions, bool)).to(device)
-        ld_t = torch.from_numpy(np.ascontiguousarray(logdepth_perseg, np.float32)).to(device)
-        disc = depth_discontinuity(ld_t, reg_t, filter_size, depth_threshold)
-    with _stage("split_cc"):
-        labels = label_components(reg_t & ~disc).reshape(N, H * W).cpu().numpy()
-
     min_px = area_keep_ratio * (H * W)
-    parts = []  # (segment i, None = kept whole, else its kept labels)
-    with _stage("split_parts"):
-        for i in range(N):
-            fg = labels[i][labels[i] >= 0]
-            if fg.size == 0:
-                continue
-            sizes = np.bincount(fg, minlength=H * W)
-            kept_ids = np.nonzero(sizes > min_px)[0]
-            if kept_ids.size:
-                parts.append((i, None if kept_ids.size == 1 else kept_ids))
+    labels = np.empty((N, H * W), np.int32)
+    n_kept = np.empty(N, np.int64)
+    several = {}  # segment -> its kept labels, for segments with more than one
+    step = max(1, SPLIT_CHUNK_PIXELS // (H * W))
+    for lo in range(0, N, step):
+        with _stage("split_disc"):
+            reg_t = torch.from_numpy(np.ascontiguousarray(regions[lo:lo + step], bool)).to(device)
+            ld_t = torch.from_numpy(
+                np.ascontiguousarray(logdepth_perseg[lo:lo + step], np.float32)).to(device)
+            disc = depth_discontinuity(ld_t, reg_t, filter_size, depth_threshold)
+        with _stage("split_cc"):
+            lab = label_components(reg_t & ~disc).reshape(-1, H * W)
+            labels[lo:lo + step] = lab.cpu().numpy()
+        with _stage("split_parts"):
+            # each part's pixel count, at its label (a linear index)
+            sizes = torch.zeros(lab.shape, dtype=torch.int32, device=lab.device)
+            sizes.scatter_add_(1, lab.clamp(min=0).long(), (lab >= 0).to(torch.int32))
+            kept = sizes > min_px
+            counts = kept.sum(dim=1)
+            n_kept[lo:lo + step] = counts.cpu().numpy()
+            for j in torch.nonzero(counts > 1).flatten().tolist():
+                several[lo + j] = torch.nonzero(kept[j]).flatten().cpu().numpy()
 
+    with _stage("split_parts"):
+        # (segment i, None = kept whole, else its kept labels)
+        parts = [(i, several.get(i)) for i in range(N) if n_kept[i] > 0]
         n_out = sum(1 if k is None else len(k) for _, k in parts)
         if n_out == 0 or (n_out == N and all(k is None for _, k in parts)):
             return regions, logdepth_perseg, keypoints_rc

@@ -47,6 +47,7 @@ calls the JAX package makes.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -107,7 +108,13 @@ class FrontProcessor:
     def _stage(self, name):
         return self.timer.stage(name) if self.timer else contextlib.nullcontext()
 
-    def process_to_kf(self, image, K, keypoints=None) -> dict:
+    def process_to_kf(self, image, K, keypoints=None, loose: bool = False) -> dict:
+        """One keyframe from ``image`` (uint8 or float [0, 1]) and ``K``;
+        ``keypoints`` (B, 2) normalised (row, col) prompts replace round 1's
+        random ones.  ``loose`` is depth completion's fallback: SAM without
+        NMS and without the smallest-good pick, so every good candidate of
+        every prompt becomes a segment (the host selection path, on the
+        predictor's statistics)."""
         fc = self.config.frontend
         image = np.asarray(image)
         if image.dtype != np.uint8:
@@ -132,6 +139,8 @@ class FrontProcessor:
         # final after each round (no cut by edges), round 1's segments start
         # integrating on the device before round 2 runs.
         sam_params = self.config.sam_params
+        if loose:
+            sam_params = dataclasses.replace(sam_params, nms=False, select_smallest=False)
         sam_hw = sam_params.infer_resolution
         sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
         preload = getattr(self.mask_predict_fn, "preload", None)
@@ -183,7 +192,8 @@ class FrontProcessor:
             regions = depth_kf > 1e-7
             kps, regions, depth_kf = put_keypoints_back(gen["keypoints"], regions, depth_kf)
             logdepth = np.zeros(depth_kf.shape, np.float32)
-            np.log(np.maximum(depth_kf, 1e-30), out=logdepth, where=regions)
+            # regions are depth > 1e-7, so no clamp is needed inside them
+            np.log(depth_kf, out=logdepth, where=regions)
 
             dims = np.asarray([H_kf, W_kf], np.float32)
             kp_rc = np.round(0.5 * (dims - 1) * (kps + 1)).astype(np.int64)

@@ -1,13 +1,15 @@
-"""Stub frontend for checkpoint-free runs: keyframe geometry from GT depth.
+"""Stub frontends for checkpoint-free runs: keyframe geometry from GT depth.
 
-Port of ``super_primitive_tpu/frontend/stub.py`` (``GridSegmentFrontend``):
-the optimizer runs on frontend outputs synthesized from ground-truth depth,
-isolated from the networks.  Host numpy only.
+Port of ``super_primitive_tpu/frontend/stub.py`` (``GridSegmentFrontend``
+for odometry, ``PatchSegmentFrontend`` for depth completion): the solvers
+and the completion run on frontend outputs synthesized from ground-truth
+depth, isolated from the networks.  Host numpy only.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class GridSegmentFrontend:
@@ -84,3 +86,51 @@ class GridSegmentFrontend:
         (the reference frontend infers geometry from the image alone; this
         stub substitutes GT depth for the predicted+integrated geometry)."""
         self._depth = np.asarray(frame["depth"], np.float32)
+
+
+class PatchSegmentFrontend:
+    """Depth-completion stub: one square segment of ``patch`` pixels a side
+    around each query keypoint, its frozen log-depth taken from a GT depth
+    map, so the completion (median alignment, overlap averaging, the loose
+    rerun, the metrics) runs end to end without the nets.  A ``loose`` call
+    doubles the patch.  ``calls`` records each call's ``loose``.  The
+    segments are host arrays; ``device`` is where the completion that
+    consumes them forms its dense depths.
+
+    GT depth comes from the constructor or per sample through
+    ``observe(sample)``, which reads ``sample["gt_depth"]`` (non-finite
+    values as 0)."""
+
+    def __init__(self, gt_depth=None, patch: int = 9,
+                 device: str | torch.device = "cuda"):
+        self.gt = None if gt_depth is None else np.asarray(gt_depth, np.float32)
+        self.patch = patch
+        self.device = torch.device(device)
+        self.calls: list[bool] = []
+
+    def observe(self, sample: dict):
+        gt = np.asarray(sample["gt_depth"], np.float32)
+        self.gt = np.where(np.isfinite(gt), gt, 0.0)
+
+    def process_to_kf(self, image, K, keypoints=None, loose=False) -> dict:
+        if self.gt is None:
+            raise RuntimeError("set gt_depth or call observe(sample) first")
+        self.calls.append(loose)
+        H, W = self.gt.shape
+        dims = np.asarray([H, W], np.float32)
+        kp_rc = np.round(0.5 * (dims - 1) * (keypoints + 1)).astype(np.int64)
+        p = self.patch * (2 if loose else 1)
+        N = kp_rc.shape[0]
+        regions = np.zeros((N, H, W), bool)
+        for i, (r, c) in enumerate(kp_rc):
+            r0, r1 = max(0, r - p // 2), min(H, r + p // 2 + 1)
+            c0, c1 = max(0, c - p // 2), min(W, c + p // 2 + 1)
+            regions[i, r0:r1, c0:c1] = True
+        logdepth = np.log(np.maximum(self.gt, 1e-6))[None] * regions
+        return {
+            "image": np.asarray(image, np.float32),
+            "K": np.asarray(K, np.float32),
+            "regions": regions,
+            "logdepth_perseg": logdepth.astype(np.float32),
+            "keypoints_rc": kp_rc,
+        }

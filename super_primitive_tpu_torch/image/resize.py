@@ -28,7 +28,9 @@ def nn_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     ri = _nearest_index(H, src_hw[0])
     ci = _nearest_index(W, src_hw[1])
     if batch:
-        return x[:, ri[:, None], ci[None, :]]
+        # two takes keep the (N, H, W) stack C-ordered; one advanced index
+        # x[:, ri, ci] would lay it out with N fastest
+        return np.take(np.take(x, ri, axis=1), ci, axis=2)
     return x[ri[:, None], ci[None, :]]
 
 

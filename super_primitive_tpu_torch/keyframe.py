@@ -158,6 +158,28 @@ def keyframe_pyramid(
     return KeyFramePyramid(images=images, Ks_img=Ks_img, K=kf.K, geo=kf.geo, bundle=bundle)
 
 
+def _nearest_pixel(mask: np.ndarray, r: int, c: int) -> tuple[int, int]:
+    """The pixel of a non-empty (H, W) ``mask`` nearest to (r, c), ties to
+    the first in row-major order.  Searched in square windows that grow 4x:
+    once the window's nearest pixel lies within its half-width R, every
+    pixel outside the window is farther (|dr| or |dc| > R), so the window's
+    first nearest pixel is the frame's."""
+    H, W = mask.shape
+    R = 8
+    while True:
+        r0, r1, c0, c1 = max(0, r - R), min(H, r + R + 1), max(0, c - R), min(W, c + R + 1)
+        whole = r0 == 0 and c0 == 0 and r1 == H and c1 == W
+        rr, cc = np.nonzero(mask[r0:r1, c0:c1])
+        if rr.size:
+            d2 = (rr + r0 - r) ** 2 + (cc + c0 - c) ** 2
+            j = int(np.argmin(d2))
+            if whole or d2[j] <= R * R:
+                return int(rr[j]) + r0, int(cc[j]) + c0
+        elif whole:
+            raise ValueError("_nearest_pixel: the mask is empty")
+        R *= 4
+
+
 def put_keypoints_back(
     keypoints: np.ndarray, regions: np.ndarray, logdepth: Optional[np.ndarray] = None
 ):
@@ -180,10 +202,7 @@ def put_keypoints_back(
     out = kp_px.copy()
     in_mask = regions[np.arange(M), kp_px[:, 0], kp_px[:, 1]] if M else np.zeros(0, bool)
     for i in np.nonzero(~in_mask)[0]:
-        rr, cc = np.nonzero(regions[i])
-        d2 = (rr - kp_px[i, 0]) ** 2 + (cc - kp_px[i, 1]) ** 2
-        j = int(np.argmin(d2))
-        out[i] = rr[j], cc[j]
+        out[i] = _nearest_pixel(regions[i], int(kp_px[i, 0]), int(kp_px[i, 1]))
     new_kp = (2.0 * out / (dims - 1.0) - 1.0).astype(np.float32)
     if logdepth is not None:
         return new_kp, regions, logdepth

@@ -24,10 +24,14 @@ them.  :class:`PromptRounds` holds the four prompt-round methods over a
 subclass's decode: :class:`SamPredictor` here, ``frontend/fakes.
 DeviceFakeSAM`` on structured fake logits.
 
-Unlike the JAX package, a round decodes all its prompts in one batch (no
-padding to a fixed chunk: PyTorch compiles nothing per shape), and the
-greedy NMS walks its order on the host over one fetched (C, C) overlap
-matrix.  Both change no output.  Not ported: ``predict_batched_points``,
+A selection round decodes all its prompts in one batch (the JAX package
+pads them to a multiple of 64; PyTorch compiles nothing per shape, so the
+port does not pad).  The statistics path decodes in chunks of
+:data:`STATS_CHUNK` prompts, as the JAX package does: the decoder's
+(B, 32, 256, 256) upscaling activations then stay a chunk's size, and each
+prompt's outputs do not depend on the others in its batch.  The greedy NMS
+walks its order on the host over one fetched (C, C) overlap matrix.  None
+of this changes an output.  Not ported: ``predict_batched_points``,
 ``postprocess_masks`` and statistics at ``out_size != S``, which need
 ``jax.image.resize`` semantics and which no frontend path takes.
 """
@@ -50,6 +54,7 @@ from .prompt_encoder import PromptEncoder
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 MASK_THRESHOLD = 0.0
+STATS_CHUNK = 128  # prompts a decode on the statistics path
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
@@ -277,10 +282,13 @@ class PromptRounds:
     def predict_points_with_stats(self, points_input_frame: np.ndarray, out_size: int = 256):
         """(masks bool (B, 3, hs, ws), iou (B, 3), stability (B, 3),
         areas (B, 3)) on the host; the statistics are full-resolution K3
-        counts."""
+        counts.  The prompts are decoded :data:`STATS_CHUNK` at a time, and
+        the chunks' packed masks and statistics come to the host together."""
         input_hw, hs, ws = self._grid(out_size)
-        packed, iou, stab, area = self._decode_stats(
-            self._points(points_input_frame), input_hw, out_size)
+        pts = self._points(points_input_frame)
+        parts = [self._decode_stats(pts[lo:lo + STATS_CHUNK], input_hw, out_size)
+                 for lo in range(0, pts.shape[0], STATS_CHUNK)]
+        packed, iou, stab, area = (torch.cat(ts) for ts in zip(*parts))
         bits = _unpackbits_lastaxis(packed)[..., :hs, :ws]
         return (bits.cpu().numpy(), iou.cpu().numpy(), stab.cpu().numpy(),
                 area.cpu().numpy())

@@ -11,9 +11,12 @@ Mirrors the repository's ``run_sfm.py``:
 
 It runs on the card (``--device cuda``, the default) and raises if there is
 none; ``--device cpu`` runs the same code on the CPU with the kernels' plain
-versions.  The ported datasets are the synthetic planes scenes
-(``dataset.type: planes``, ``dataset.path`` naming the trajectory,
-``linear`` or ``orbit``, at ``frontend.normals.network_dim``).  Two-frame
+versions.  The datasets are the synthetic planes scenes (``dataset.type:
+planes``, ``dataset.path`` naming the trajectory, ``linear`` or ``orbit``,
+at ``frontend.normals.network_dim``) and trees in the TUM, Replica and VOID
+layouts (``dataset.type: tum | tum_undistort | replica | void``,
+``dataset.path`` the tree, ``traj_file`` TUM's ground truth,
+``intrinsics`` an optional (fx, fy, cx, cy)).  Two-frame
 SfM writes ``two_frame_result.npz`` under the config's ``save_path``.
 ``--odom`` runs monocular odometry over ``--max-frames`` frames (default 20)
 and writes ``converted_tum_traj.txt`` and ``converted_gt_tum_traj.txt``
@@ -43,27 +46,31 @@ from .solve.two_frame import (
     solve_two_frame,
     solve_two_frame_gn,
 )
-from .utils.numerics import float32_matmuls
+from .utils.numerics import float32_matmuls, settle_cpu_exp
 
 
 def require_device(device: str | torch.device) -> torch.device:
-    """The device to run on, checked, with TF32 off for float32 geometry."""
+    """The device to run on, checked, with TF32 off for float32 geometry
+    and, on the CPU, ``exp`` settled (``utils.numerics.settle_cpu_exp``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found (pass --device cpu to run on the CPU)")
     float32_matmuls()
+    if device.type == "cpu":
+        settle_cpu_exp()
     return device
 
 
 def load_dataset(config, n_frames: int | None = None):
-    """The port's datasets: ``planes`` (a synthetic PlanesSequence of
-    ``n_frames`` frames, by default enough for source and target)."""
+    """The dataset a config names: ``planes`` (a synthetic PlanesSequence
+    of ``n_frames`` frames, by default enough for source and target), or a
+    real-data tree of ``tum``, ``tum_undistort``, ``replica`` or ``void``
+    layout (``data.load_dataset``)."""
     ds = config.dataset
     if ds.type != "planes":
-        raise NotImplementedError(
-            f"dataset type {ds.type!r} is not ported yet (ROADMAP.md, queue 1, item 3); "
-            "use type: planes"
-        )
+        from .data import load_dataset as load_real
+
+        return load_real(ds)
     from .data.synthetic import PlanesSequence
 
     H, W = config.frontend.normals.network_dim

@@ -24,3 +24,15 @@ def float32_matmuls() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def settle_cpu_exp() -> None:
+    """Make the process's first CPU ``torch.exp`` a one-thread call.
+
+    With torch 2.13's CPU build (MKL, 8 OpenMP threads), the first float32
+    or float64 ``torch.exp`` of a process that is split over threads gave,
+    in about one run in six, whole threads' chunks off by up to 1.5e-4
+    relative; later calls, and a first call that one thread runs, were
+    exact.  One exp of a one-element tensor settles it before any large
+    call."""
+    torch.exp(torch.zeros(1))

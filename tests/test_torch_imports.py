@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of ``super_primitive_tpu_torch``
-and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV or the
-JAX package; and ``chip_smoke.py`` fails without printing a result where
-there is no card, or where the package is not beside it."""
+and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV, PIL or
+the JAX package, and importing the dataset loaders, the depth completion
+and ``evaluate_void`` loads none of them; and ``chip_smoke.py`` fails
+without printing a result where there is no card, or where the package is
+not beside it."""
 
 import os
 import re
@@ -15,7 +17,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|super_primitive_tpu(?!_torch))\b",
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|PIL|super_primitive_tpu(?!_torch))\b",
     re.MULTILINE,
 )
 
@@ -29,6 +31,26 @@ def port_sources():
 def test_no_forbidden_imports(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path} imports {hits}"
+
+
+STANDALONE_MODULES = [
+    "data", "data.image_io", "data.undistort", "data.transforms", "data.tum",
+    "data.replica", "data.void", "depth_completion.completion", "depth_completion.fill_in",
+    "depth_completion.metrics", "evaluate_void", "eval.dataset_trees",
+]
+
+
+@pytest.mark.parametrize("module", STANDALONE_MODULES)
+def test_module_loads_nothing_forbidden(module):
+    """Importing the module in a fresh interpreter loads no forbidden
+    package, not even through another module."""
+    code = (f"import sys, super_primitive_tpu_torch.{module}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'cv2', 'PIL', 'super_primitive_tpu')); print(bad)")
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip() == "[]", p.stdout
 
 
 def test_kernel_sources_are_packaged():

@@ -89,6 +89,23 @@ class TestKeyframe:
         for a, b in zip(out_t, out_j):
             assert np.array_equal(a, b)
 
+    def test_put_keypoints_back_far_pixels(self):
+        """Masks whose nearest pixel lies beyond the first search windows,
+        and equidistant pixels (the first in row-major order wins)."""
+        r = np.random.default_rng(1)
+        regions = np.zeros((6, 96, 128), bool)
+        regions[0, 90:, 120:] = True          # a far corner
+        regions[1, 10, 5] = regions[1, 30, 5] = True  # a tie at distance 10
+        regions[2, 50:52, :] = True
+        regions[3] = r.uniform(size=(96, 128)) > 0.999
+        regions[4, 0, 0] = True
+        regions[5] = r.uniform(size=(96, 128)) > 0.5
+        kps = np.float32([[-1, -1], [-0.58, -0.92], [0.9, 0.1], [0.0, 0.0], [1, 1], [0.3, -0.2]])
+        out_t = tkf.put_keypoints_back(kps, regions)
+        out_j = jkf.put_keypoints_back(kps, regions)
+        for a, b in zip(out_t, out_j):
+            assert np.array_equal(a, b)
+
     def test_pyramid_builds_bundle(self, problem):
         port = problem["port"]
         kfr = tkf.KeyFrame(image=torch.from_numpy(problem["kf"]["image"]),
@@ -288,10 +305,10 @@ class TestTwoFrameSlice:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 trun.require_device("cuda")
         cfg = tmp_path / "c.yaml"
-        cfg.write_text("dataset:\n  type: replica\n")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.write_text("dataset:\n  type: kitti\n")
+        with pytest.raises(ValueError, match="unknown dataset type"):
             trun.main(["--config", str(cfg), "--odom", "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown dataset type"):
             trun.main(["--config", str(cfg), "--device", "cpu", "--fake-frontend"])
         with pytest.raises(ValueError, match="--sam-ckpt and --nnet-ckpt"):
             trun.build_frontend(trun.argparse.Namespace(stub_frontend=False, fake_frontend=False,

@@ -146,6 +146,19 @@ def test_split_keyframe(keyframe):
         np.testing.assert_array_equal(a, b)
 
 
+def test_split_keyframe_in_chunks(keyframe, monkeypatch):
+    """The split's device passes cut into chunks of 3 segments give the
+    JAX package's output too."""
+    args = (keyframe["regions"], keyframe["logdepth_perseg"], keyframe["keypoints_rc"],
+            3, 0.1, 1e-3)
+    monkeypatch.setattr(tpost, "SPLIT_CHUNK_PIXELS", 3 * 96 * 128 + 5)
+    got = tpost.split_disconnected_segments(*args, rng=np.random.default_rng(5), device="cpu")
+    want = jpost.split_disconnected_segments(*args, rng=np.random.default_rng(5))
+    assert keyframe["regions"].shape[0] > 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_frontend_with_split():
     """Device SAM selection and the split on, port against JAX: the same
     regions and keypoints (the split's generator draws shift every later
