@@ -75,13 +75,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each slab count;
      (b) the structured fake completes the same images, gated on the
      valid-only AbsRel and the validity rate (``VOID_FAKE_*``); (c) the TUM
-     and Replica trees decode to the arrays written, ``run_sfm --odom
-     --fake-frontend`` on the TUM tree and two-frame ``run_sfm`` on the
-     Replica one (GN solvers) end finite, a ``tum_undistort`` read; decode
+     and Replica trees decode to the arrays written; ``run_sfm --odom
+     --fake-frontend --live-viz`` on the TUM tree (GN solvers, a lower
+     keyframe threshold so that three keyframes come) leaves
+     ``viewer.html``, ``trajectory.png``, the TUM files and a
+     ``live.json`` whose ``seq`` counts the tracked frames, and ``python
+     -m super_primitive_tpu_torch.convert_traj_to_tum`` on its run
+     directory writes the same TUM files again; two-frame ``run_sfm`` on
+     the Replica tree (GN) leaves ``src_pointcloud.ply`` and
+     ``viewer.html``; both end finite; a ``tum_undistort`` read; decode
      ms per frame.
+  10. the resume slice: ``run_e2e("gn", frames=RESUME_FRAMES,
+     restore_split=RESUME_SPLIT, save_every=RESUME_SAVE_EVERY)`` at full
+     width: the first leg checkpoints, a fresh ``Odometry`` and frontend
+     resume from it and finish the sequence, adding at least one keyframe
+     with K2 and K3 launched after the restore (counts reset there); the
+     window that ``load_state`` puts on the card equals, bit for bit, the
+     one built on the host from the saved keyframes with
+     ``build_bundle_np``, and so does the same checkpoint loaded with
+     ``device="cpu"``; every pose finite and the Sim(3) ATE over all
+     tracked frames below 0.05; ``save_state`` s and bytes, ``load_state``
+     s, ms per tracked frame in each leg, keyframes per leg; K2 and K3
+     against their plain versions on the second leg's inputs.
 
 Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b,
-8 and 9 and read just after; a kernel of a path that was not launched there
+8, 9 and 10 (at its restore) and read just after; a kernel of a path that was not launched there
 fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it (phase 9 keeps K2's largest and longest-running calls whole), and
@@ -147,9 +165,18 @@ NET_CARD_TOL = {"block": 1e-5, "decoder": 4e-6, "nnet": 1e-5}
 BF16_TOL = {"features": 5e-2, "logits": 6e-2, "iou": 3e-2}
 # phase 9: VOID1500 density (1500 sparse pixels an image, drawn from the
 # seed), two images through evaluate_void and a third through the forced
-# loose rerun; TUM and Replica trees of 6 and 5 frames
+# loose rerun; TUM and Replica trees of 10 and 5 frames
 VOID_IMAGES, VOID_SPARSE, VOID_SEED = 2, 1500, 9
-TUM_FRAMES, REPLICA_FRAMES = 6, 5
+TUM_FRAMES, REPLICA_FRAMES = 10, 5
+# phase 9c's TUM odometry run must make the three ground-truth keyframes
+# that trajectory.png needs: planes_odom.yaml's keyframe translation
+# threshold (0.08) halved
+TUM_KF_TRANSLATION = 0.04
+# phase 10: the GN VO run split at a frame and resumed from its checkpoint
+RESUME_FRAMES, RESUME_SPLIT, RESUME_SAVE_EVERY = 24, 12, 4
+# phase 10's window fields, held bit for bit after load_state
+RESUME_WINDOW_FIELDS = ("images", "K", "poses", "kp_logdepth", "affine", "kf_valid", "uv",
+                        "seg_id", "base_logdepth", "point_valid", "num_valid", "kp_base")
 # phase 9b's bounds on the structured fake (exact plane normals, median
 # alignment to the sparse ground truth), written before its first chip run
 # from CPU rehearsals at 120x160 (valid-only AbsRel 0.041-0.056, validity
@@ -1509,13 +1536,14 @@ def stats_path_counts(predictor, k3):
 
 
 def loader_config_file(pkg_dir: Path, out: Path, name: str, base: str, dataset: dict,
-                       save_path: Path) -> Path:
-    """A copy of the port's config ``base`` with ``dataset`` replaced and
-    the GN/LM solvers for tracking and mapping, written to ``out/name``."""
+                       save_path: Path, **extra) -> Path:
+    """A copy of the port's config ``base`` with ``dataset`` replaced, the
+    GN/LM solvers for tracking and mapping and the top-level keys of
+    ``extra``, written to ``out/name``."""
     import yaml
 
     cfg = yaml.safe_load((pkg_dir / "configs" / base).read_text())
-    cfg.update(dataset=dataset, save_path=str(save_path))
+    cfg.update(dataset=dataset, save_path=str(save_path), **extra)
     align = cfg.setdefault("alignment", {})
     align.setdefault("mapping", {})["solver"] = "gn"
     if "track" in align:
@@ -1660,10 +1688,12 @@ def run_void_fake(torch, stencil, k3, pkg_dir: Path, work: Path, seq) -> dict:
 
 def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -> dict:
     """Phase 9c: TUM and Replica trees decode to the arrays written; a
-    ``run_sfm --odom --fake-frontend`` over the TUM tree, a ``tum_undistort``
-    read of it, and a two-frame ``run_sfm --fake-frontend`` on the Replica
-    tree, each ending finite; decode ms per 480x640 frame."""
+    ``run_sfm --odom --fake-frontend --live-viz`` over the TUM tree and
+    ``convert_traj_to_tum`` on its run, a ``tum_undistort`` read of it, and
+    a two-frame ``run_sfm --fake-frontend`` on the Replica tree, each
+    ending finite with its artifacts; decode ms per 480x640 frame."""
     import numpy as np
+    import yaml
 
     from super_primitive_tpu_torch import run_sfm
     from super_primitive_tpu_torch.data.image_io import read_png, read_rgb
@@ -1720,7 +1750,9 @@ def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -
     odom_cfg = loader_config_file(
         pkg_dir, work, "tum_odom.yaml", "planes_odom.yaml",
         {"type": "tum", "path": str(tum), "traj_file": str(tum / "groundtruth.txt"),
-         "intrinsics": K}, work / "tum_out")
+         "intrinsics": K}, work / "tum_out",
+        kf={**yaml.safe_load((pkg_dir / "configs" / "planes_odom.yaml").read_text())["kf"],
+            "translation_thresh": TUM_KF_TRANSLATION})
     sfm_cfg = loader_config_file(
         pkg_dir, work, "replica_sfm.yaml", "planes_sfm.yaml",
         {"type": "replica", "path": str(replica), "intrinsics": K, "source_id": 0,
@@ -1728,27 +1760,58 @@ def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -
     stencil.reset_launch_counts()
     k3.reset_launch_counts()
     t0 = time.perf_counter()
+    live = work / "tum_live"
     run_sfm.main(["--config", str(odom_cfg), "--odom", "--fake-frontend",
-                  "--max-frames", str(TUM_FRAMES)])
+                  "--max-frames", str(TUM_FRAMES), "--live-viz", str(live)])
     odom_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_sfm.main(["--config", str(sfm_cfg), "--fake-frontend"])
     sfm_s = time.perf_counter() - t0
     launches = {**stencil.launch_counts, **k3.launch_counts}
-    traj = np.loadtxt(work / "tum_out" / "converted_tum_traj.txt", ndmin=2)
-    result = np.load(work / "replica_out" / "two_frame_result.npz")
+    tum_out, rep_out = work / "tum_out", work / "replica_out"
+    traj = np.loadtxt(tum_out / "converted_tum_traj.txt", ndmin=2)
+    result = np.load(rep_out / "two_frame_result.npz")
     finite = bool(np.isfinite(traj).all() and np.isfinite(result["pose"]).all()
                   and np.isfinite(result["kp_logdepth"]).all())
+    # the artifacts: what run_sfm left, then the TUM files written again by
+    # convert_traj_to_tum in a process of its own
+    missing = [str(p) for p in (tum_out / "viewer.html", tum_out / "trajectory.png",
+                                tum_out / "converted_gt_tum_traj.txt", live / "live.json",
+                                live / "live.html", rep_out / "src_pointcloud.ply",
+                                rep_out / "viewer.html") if not p.exists()]
+    if missing:
+        fail(f"run_sfm left no {', '.join(missing)}")
+    plot = read_png(str(tum_out / "trajectory.png"))
+    snapshot = json.loads((live / "live.json").read_text())
+    if snapshot["seq"] != TUM_FRAMES - 1:
+        fail(f"live.json's seq is {snapshot['seq']}, not the {TUM_FRAMES - 1} tracked frames")
+    tum_files = {n: (tum_out / n).read_text()
+                 for n in ("converted_tum_traj.txt", "converted_gt_tum_traj.txt")}
+    for n in tum_files:
+        (tum_out / n).unlink()
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "super_primitive_tpu_torch.convert_traj_to_tum",
+                    "--run", str(tum_out), "--config", str(odom_cfg)], check=True,
+                   timeout=300, cwd=pkg_dir.parent)
+    convert_s = time.perf_counter() - t0
+    for n, text in tum_files.items():
+        if not (tum_out / n).exists() or (tum_out / n).read_text() != text:
+            fail(f"convert_traj_to_tum did not write {n} as run_sfm did")
     out = {"rgb_decode_ms": rgb_ms, "depth_decode_ms": depth_ms,
            "rgb_decode_ms_mean": float(np.mean(rgb_ms[1:])),
            "depth_decode_ms_mean": float(np.mean(depth_ms[1:])),
            "tum_odom_s": odom_s, "tum_keyframes": int(traj.shape[0]),
-           "replica_two_frame_s": sfm_s, "launches": launches, "finite": finite}
+           "replica_two_frame_s": sfm_s, "convert_traj_to_tum_s": convert_s,
+           "trajectory_png": list(plot.shape), "live_seq": snapshot["seq"],
+           "viewer_html_bytes": (tum_out / "viewer.html").stat().st_size,
+           "live_json_bytes": (live / "live.json").stat().st_size,
+           "launches": launches, "finite": finite}
     print(f"loaders on {card}: decode ms per 480x640 frame, RGB "
           f"{out['rgb_decode_ms_mean']:.1f}, 16-bit depth {out['depth_decode_ms_mean']:.1f} "
-          f"(first frames {rgb_ms[0]:.1f} / {depth_ms[0]:.1f}); TUM odometry {odom_s:.2f} s, "
-          f"{traj.shape[0]} keyframes; Replica two-frame {sfm_s:.2f} s; launches {launches}",
-          flush=True)
+          f"(first frames {rgb_ms[0]:.1f} / {depth_ms[0]:.1f}); TUM odometry with --live-viz "
+          f"{odom_s:.2f} s, {traj.shape[0]} keyframes, live seq {snapshot['seq']}; "
+          f"convert_traj_to_tum {convert_s:.2f} s; Replica two-frame {sfm_s:.2f} s; "
+          f"launches {launches}", flush=True)
     if not finite:
         fail("the TUM odometry or the Replica two-frame run ended non-finite")
     return out
@@ -1792,6 +1855,152 @@ def run_void(torch, stencil, k3, pkg_dir: Path, card: str):
                       f"{100 * r['undecided_share']:.2f}% to the full path" for r in k3_rows),
           flush=True)
     return launches, k2_rows, k3_rows, summary
+
+
+def host_window(kfs, window_size: int, supp_cap: int, seg_cap: int, point_cap: int) -> dict:
+    """The window fields that ``kfs`` (host keyframes, in slot order) should
+    give, built on the host with ``build_bundle_np`` and numpy."""
+    import numpy as np
+
+    from super_primitive_tpu_torch.keyframe import build_bundle_np
+
+    H, W, C = kfs[0].image.shape
+    w = {"images": np.zeros((window_size, H, W, C), np.float32),
+         "K": np.tile(np.eye(3, dtype=np.float32), (window_size, 1, 1)),
+         "poses": np.tile(np.eye(4, dtype=np.float32), (window_size, 1, 1)),
+         "kp_logdepth": np.zeros((window_size, seg_cap), np.float32),
+         "affine": np.zeros((window_size, 2), np.float32),
+         "kf_valid": np.zeros(window_size, bool),
+         "uv": np.zeros((window_size, point_cap, 2), np.float32),
+         "seg_id": np.zeros((window_size, point_cap), np.int64),
+         "base_logdepth": np.zeros((window_size, point_cap), np.float32),
+         "point_valid": np.zeros((window_size, point_cap), bool),
+         "num_valid": np.zeros(window_size, np.int64),
+         "kp_base": np.zeros((window_size, seg_cap), np.float32)}
+    for i, kf in enumerate(kfs):
+        n = kf.regions.shape[0]
+        b = build_bundle_np(kf.regions, kf.logdepth_perseg, capacity=point_cap, device="cpu")
+        w["images"][i], w["K"][i], w["poses"][i] = kf.image, kf.K, kf.pose
+        w["kp_logdepth"][i, :n], w["affine"][i], w["kf_valid"][i] = kf.kp_logdepth, kf.affine, True
+        w["uv"][i], w["seg_id"][i] = b.uv.numpy(), b.seg_id.numpy()
+        w["base_logdepth"][i], w["point_valid"][i] = b.base_logdepth.numpy(), b.valid.numpy()
+        w["num_valid"][i] = b.num_valid
+        w["kp_base"][i, :n] = kf.logdepth_perseg[np.arange(n), kf.keypoints_rc[:, 0],
+                                                 kf.keypoints_rc[:, 1]]
+    return w
+
+
+def window_mismatch(buffers, want: dict) -> list[str]:
+    """The ``RESUME_WINDOW_FIELDS`` of ``buffers`` that are not bit for bit
+    ``want``'s (dtype, shape and values)."""
+    import numpy as np
+
+    bad = []
+    for f in RESUME_WINDOW_FIELDS:
+        x = getattr(buffers, f)
+        got = x if isinstance(x, np.ndarray) else x.cpu().numpy()
+        if got.dtype != want[f].dtype or not np.array_equal(got, want[f]):
+            bad.append(f)
+    return bad
+
+
+def run_resume(torch, stencil, k3, card: str) -> tuple[dict, dict]:
+    """Phase 10: the GN VO run at full width split at ``RESUME_SPLIT``,
+    checkpointed and resumed in a fresh ``Odometry`` and frontend; launch
+    counts and recorded kernel inputs restart at the restore.  Then the
+    checkpoint is loaded again on the card and on the CPU and held to the
+    window built on the host from its keyframes, and K2 and K3 to their
+    plain versions on the second leg's inputs."""
+    import dataclasses
+    import shutil
+    import types
+
+    import numpy as np
+
+    from super_primitive_tpu_torch.config.schema import RestoreConfig
+    from super_primitive_tpu_torch.eval.e2e_synthetic import make_e2e_config, run_e2e
+    from super_primitive_tpu_torch.odometry import io
+    from super_primitive_tpu_torch.odometry.odometry import Odometry
+
+    t_phase = time.perf_counter()
+    save_path = Path("build") / "chip_smoke" / "resume"
+    shutil.rmtree(save_path, ignore_errors=True)
+    with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        def at_restore():
+            stencil.reset_launch_counts()
+            k3.reset_launch_counts()
+            k2_inputs.clear()
+            k3_inputs.clear()
+
+        r = run_e2e("gn", frames=RESUME_FRAMES, device="cuda", save_path=str(save_path),
+                    restore_split=RESUME_SPLIT, save_every=RESUME_SAVE_EVERY,
+                    on_restore=at_restore)
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    first, odom = r["first_leg"], r["odom"]
+
+    def ms_per_tracked(timer):
+        n = timer.counts.get("fused_frame", 0) + timer.counts.get("track", 0)
+        s_ = timer.totals.get("fused_frame", 0.0) + timer.totals.get("track", 0.0)
+        return 1000 * s_ / max(n, 1)
+
+    # the checkpoint loaded again, on the card and on the CPU, against the
+    # window its saved keyframes give on the host
+    tag_id = RESUME_SPLIT - 1
+    cfg = dataclasses.replace(make_e2e_config("gn", save_path=str(save_path)),
+                              restore=RestoreConfig(path=str(save_path), frame_id=tag_id))
+    kf_dir = save_path / "curr_kfs" / Odometry.id_to_timestamp(tag_id)
+    saved = [io.load_kf(str(kf_dir), ts) for ts in (kf_dir / "window.txt").read_text().split()]
+    loaded = {}
+    for dev in ("cuda", "cpu"):
+        o = Odometry(cfg, types.SimpleNamespace(), None, device=dev)
+        o.load_state(str(save_path), tag_id)
+        loaded[dev] = o
+    o = loaded["cuda"]
+    want = host_window(saved, o.window_size, o.supp_cap, o.seg_cap, o.point_cap)
+    card_bad = window_mismatch(o.buffers, want)
+    cpu_bad = window_mismatch(loaded["cpu"].buffers, want)
+    caps = (o.seg_cap, o.point_cap) == (first.seg_cap, first.point_cap)
+    del loaded, o
+
+    ate = r["ate"]["rmse"]
+    finite = all(np.isfinite(np.asarray(T)).all() for T in odom.global_track_trajectory.values())
+    recorded = {"bini_cg": list(k2_inputs.values()), "phase_counts": list(k3_inputs.values())}
+    summary = {
+        "frames": r["frames"], "split": RESUME_SPLIT, "save_every": RESUME_SAVE_EVERY,
+        "save_state_s": r["save_s"], "checkpoint_bytes": r["checkpoint_bytes"],
+        "load_state_s": r["load_s"],
+        "ms_per_tracked_frame": {"before": ms_per_tracked(first.timer),
+                                 "after": ms_per_tracked(odom.timer)},
+        "tracked": {"before": r["pre_restore_tracked"], "after": r["post_restore_tracked"]},
+        "keyframes_added": {"before": len(first.kf_add_log), "after": len(odom.kf_add_log)},
+        "keyframes": r["keyframes"], "window_kfs_restored": len(saved),
+        "capacities": [first.seg_cap, first.point_cap], "ate_sim3": ate, "wall_s": r["wall_s"],
+        "launches_after_restore": launches, "window_card_mismatch": card_bad,
+        "window_cpu_mismatch": cpu_bad}
+    print(f"resume slice on {card}: split at {RESUME_SPLIT} of {r['frames']} frames; save_state "
+          f"{r['save_s']:.3f} s, {r['checkpoint_bytes']} bytes; load_state {r['load_s']:.3f} s; "
+          f"ms per tracked frame {summary['ms_per_tracked_frame']['before']:.1f} before, "
+          f"{summary['ms_per_tracked_frame']['after']:.1f} after; keyframes added "
+          f"{summary['keyframes_added']}; Sim(3) ATE {ate:.5f}; launches after the restore "
+          f"{launches}", flush=True)
+    if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
+        fail("the resumed leg did not launch K2 and K3")
+    if not odom.kf_add_log:
+        fail("the resumed leg added no keyframe")
+    if card_bad or cpu_bad or not caps:
+        fail(f"the restored window differs from the saved keyframes: card {card_bad}, cpu "
+             f"{cpu_bad}, capacities kept {caps}")
+    if not finite:
+        fail("the resumed run has a non-finite pose")
+    if not (math.isfinite(ate) and ate < 0.05):
+        fail(f"the resumed run's Sim(3) ATE {ate} is not below 0.05")
+    summary["kernel_checks"] = check_new_inputs(
+        torch, stencil, k3, recorded, {"bini_cg": [], "phase_counts": []})
+    print("kernels on the resumed leg's inputs: " + json.dumps(summary["kernel_checks"]),
+          flush=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return launches, summary
 
 
 def main() -> int:
@@ -1845,6 +2054,8 @@ def main() -> int:
                                                   Path(pkg.__file__).resolve().parent, smi)
     void_launches, k2_void, k3_void, void = run_void(torch, stencil, k3,
                                                      Path(pkg.__file__).resolve().parent, smi)
+    torch.cuda.empty_cache()
+    resume_launches, resume = run_resume(torch, stencil, k3, smi)
 
     def path_sums(rows):
         """A path's kernel numbers summed over its recorded inputs."""
@@ -1885,7 +2096,8 @@ def main() -> int:
                                 "vo": vo_launches["bini_apply"],
                                 "vo_gn": vo_gn_launches["bini_apply"],
                                 "real_nets": rn_launches["bini_apply"],
-                                "void": void_launches["bini_apply"]}),
+                                "void": void_launches["bini_apply"],
+                                "resume": resume_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
               vo_launches["bini_cg"], k2_vo, k2,
               launches_by_path={"two_frame": k2_launches["bini_cg"],
@@ -1893,7 +2105,8 @@ def main() -> int:
                                 "vo": vo_launches["bini_cg"],
                                 "vo_gn": vo_gn_launches["bini_cg"],
                                 "real_nets": rn_launches["bini_cg"],
-                                "void": void_launches["bini_cg"]},
+                                "void": void_launches["bini_cg"],
+                                "resume": resume_launches["bini_cg"]},
               two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn,
               void_path_shapes=k2_void, void_path=path_sums(k2_void)),
         entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
@@ -1902,7 +2115,8 @@ def main() -> int:
                                 "vo": vo_launches["phase_counts"],
                                 "vo_gn": vo_gn_launches["phase_counts"],
                                 "real_nets": rn_launches["phase_counts"],
-                                "void": void_launches["phase_counts"]},
+                                "void": void_launches["phase_counts"],
+                                "resume": resume_launches["phase_counts"]},
               real_nets_path_shapes=k3_rn, void_path_shapes=k3_void,
               void_path=path_sums(k3_void)),
     ]
@@ -1910,6 +2124,7 @@ def main() -> int:
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))
     print(json.dumps({"real_nets": rn}))
     print(json.dumps({"void": void}))
+    print(json.dumps({"resume": resume}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

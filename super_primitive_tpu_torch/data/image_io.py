@@ -1,4 +1,5 @@
-"""The port's PNG reader: stdlib ``zlib`` and numpy, no OpenCV or PIL.
+"""The port's PNG reader and writer: stdlib ``zlib`` and numpy, no OpenCV
+or PIL.
 
 The JAX package's loaders decode with ``cv2.imread``; the card's host has
 no OpenCV, so the port reads the PNG files of the TUM, Replica and VOID
@@ -16,6 +17,10 @@ Up, Average and Paeth on the row above, so every file is unfiltered over
 anti-diagonals of the image: pixel (r, c) needs only pixels of the two
 diagonals before r + c, and each diagonal is one vectorised step
 (H + W - 1 steps a frame, not H x W).
+
+``write_png`` writes the same colour types; by default it cycles each
+file's rows through all five filters, so every file it writes exercises
+the whole of the unfiltering.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+_COLOR_TYPE = {v: k for k, v in CHANNELS.items()}  # samples a pixel -> colour type
 _COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray + alpha", 6: "RGBA"}
 
 
@@ -150,3 +156,36 @@ def read_rgb(path: str) -> np.ndarray:
     if img.shape[2] == 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path, img: np.ndarray, filters=(0, 1, 2, 3, 4)):
+    """Write a uint8 or uint16 (H, W) gray or (H, W, C) gray + alpha, RGB or
+    RGBA image as a PNG; row r is filtered with ``filters[r % len]``."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"cannot write {img.dtype} as PNG")
+    H, W = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    depth = 8 * img.dtype.itemsize
+    raw = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
+    bpp = ch * depth // 8
+    x = raw.reshape(H, W * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    residuals = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth(a, b, c)])
+    kinds = np.asarray(filters)[np.arange(H) % len(filters)]
+    rows = (residuals[kinds, np.arange(H)] & 0xFF).astype(np.uint8)
+    data = np.concatenate([kinds.astype(np.uint8)[:, None], rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", W, H, depth, _COLOR_TYPE[ch], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6)) + _chunk(b"IEND", b""))

@@ -2,59 +2,22 @@
 the synthetic planes sequence, for the tests and ``chip_smoke.py``.
 
 No real dataset is in the repository, so the loaders and the depth
-completion are driven on these trees.  ``write_png`` is a plain zlib PNG
-writer that cycles each file's rows through all five PNG filters, so every
-file exercises the whole of ``data/image_io``'s unfiltering.  Nothing on
-the library path imports this module.
+completion are driven on these trees.  The files are written with
+``data.image_io.write_png``, which cycles each file's rows through all five
+PNG filters, so every file exercises the whole of the reader's
+unfiltering.  Nothing on the library path imports this module.
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
 from pathlib import Path
 
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from ..data.image_io import PNG_SIGNATURE, paeth
+from ..data.image_io import write_png
 
-# colour type by channel count
-_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 TUM_T0 = 1305031102.175304  # a TUM-like first timestamp
-
-
-def _chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def write_png(path, img: np.ndarray, filters=(0, 1, 2, 3, 4)):
-    """Write a uint8 or uint16 (H, W) gray or (H, W, C) gray + alpha, RGB or
-    RGBA image as a PNG; row r is filtered with ``filters[r % len]``."""
-    img = np.asarray(img)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"cannot write {img.dtype} as PNG")
-    H, W = img.shape[:2]
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    depth = 8 * img.dtype.itemsize
-    raw = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
-    bpp = ch * depth // 8
-    x = raw.reshape(H, W * bpp).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, bpp:] = x[:, :-bpp]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]
-    residuals = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth(a, b, c)])
-    kinds = np.asarray(filters)[np.arange(H) % len(filters)]
-    rows = (residuals[kinds, np.arange(H)] & 0xFF).astype(np.uint8)
-    data = np.concatenate([kinds.astype(np.uint8)[:, None], rows], axis=1)
-    ihdr = struct.pack(">IIBBBBB", W, H, depth, _COLOR_TYPE[ch], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
 def image_u8(frame: dict) -> np.ndarray:

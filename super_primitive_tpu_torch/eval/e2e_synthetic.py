@@ -8,10 +8,14 @@ geometry, SAM at 240x320, window 4, 128 + 32 prompts, the depth split on).
 ``solver="gn"`` tracking and mapping take the GN/LM solvers at ``gn_iters``
 LM iterations (the JAX package's GN workload: level 2 only, 30 iterations)
 and mapping linearizes on every ``point_stride``-th bundle point.
+``restore_split=N`` runs to frame N, checkpoints at frame N - 1, and
+finishes the sequence in a fresh ``Odometry`` with a fresh frontend that
+resumes from the checkpoint (``examples/e2e_planes.py --restore-split``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 import time
@@ -58,10 +62,22 @@ def make_e2e_config(solver: str = "adam", small: bool = False, gn_iters: int = 3
 def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
             n_cells: int | None = None, gn_iters: int = 30, point_stride: int = 1,
             path: str = "auto", device_sam: bool = True, seed: int = 0,
-            device: str | torch.device = "cuda", save_path: str | None = None) -> dict:
+            device: str | torch.device = "cuda", save_path: str | None = None,
+            restore_split: int = 0, save_every: int = -1, on_restore=None) -> dict:
     """Run the synthetic sequence end to end on ``device``; returns a stats
     dict: ate (Sim(3) ATE over all tracked frames), wall_s, frames,
-    keyframes, kf_add_log, timer (StageTimer), odom (the Odometry object)."""
+    keyframes, kf_add_log, timer (StageTimer), odom (the Odometry object).
+
+    ``restore_split=N`` (3 < N < frames) stops the first run at frame N,
+    saves its state at frame N - 1 and resumes it in a fresh Odometry and
+    frontend; the dict then also holds ``pre_restore_tracked`` and
+    ``post_restore_tracked`` (tracked frames before and after),
+    ``first_leg`` (the first Odometry), ``save_s`` and ``load_s`` (the
+    timers' ``save_state`` and ``load_state`` stages) and
+    ``checkpoint_bytes``.  ``on_restore()``, if given, runs between the
+    legs; ``odom``, ``timer`` and ``kf_add_log`` are the second leg's.
+    ``save_every`` > 0 checkpoints every that many frames in both legs."""
+    from ..config.schema import RestoreConfig
     from ..data.synthetic import PlanesSequence
     from ..frontend.fakes import StructuredFakeFrontend
     from ..odometry.odometry import Odometry
@@ -76,12 +92,40 @@ def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
         path = "orbit" if frames > 40 else "linear"
     cfg = make_e2e_config(solver, small=small, gn_iters=gn_iters, point_stride=point_stride,
                           save_path=save_path)
+    cfg = dataclasses.replace(cfg, save_every=save_every)
     ds = PlanesSequence(n_frames=frames, H=H, W=W, path=path)
-    fe = StructuredFakeFrontend(cfg, seed=seed, n_cells=n_cells, device=device,
-                                device_sam=device_sam)
-    odom = Odometry(cfg, fe, ds, device=device)
+
+    def leg(config):
+        fe = StructuredFakeFrontend(config, seed=seed, n_cells=n_cells, device=device,
+                                    device_sam=device_sam)
+        return Odometry(config, fe, ds, device=device)
+
+    extra = {}
+    odom = leg(cfg)
     t0 = time.perf_counter()
-    traj = odom.run()
+    if restore_split > 0:
+        if not 3 < restore_split < frames:
+            raise ValueError(f"restore_split {restore_split} is not inside (3, {frames})")
+        odom.run(max_frames=restore_split)
+        tag_id = restore_split - 1  # the last frame processed
+        tag = odom.id_to_timestamp(tag_id)
+        kf_dir = odom.save_state(tag=tag)
+        files = [os.path.join(kf_dir, f) for f in os.listdir(kf_dir)] + [
+            os.path.join(cfg.save_path, "traj", f"{name}_{tag}.json")
+            for name in ("kf_traj", "track_traj", "frame_timestamps")]
+        first, n_pre = odom, len(odom.global_track_trajectory)
+        if on_restore is not None:
+            on_restore()
+        odom = leg(dataclasses.replace(
+            cfg, restore=RestoreConfig(path=cfg.save_path, frame_id=tag_id)))
+        traj = odom.run()
+        extra = {"first_leg": first, "pre_restore_tracked": n_pre,
+                 "post_restore_tracked": len(odom.global_track_trajectory) - n_pre,
+                 "save_s": first.timer.last["save_state"],
+                 "load_s": odom.timer.last["load_state"],
+                 "checkpoint_bytes": sum(os.path.getsize(f) for f in files)}
+    else:
+        traj = odom.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -96,4 +140,5 @@ def run_e2e(solver: str = "adam", frames: int = 20, small: bool = False,
         "kf_add_log": odom.kf_add_log,
         "timer": odom.timer,
         "odom": odom,
+        **extra,
     }

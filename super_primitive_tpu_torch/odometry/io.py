@@ -1,10 +1,18 @@
-"""Trajectory files.
+"""Keyframe dumps, checkpoint files and trajectory export.
 
-Port of ``super_primitive_tpu/odometry/io.py`` (``save_trajectory`` and
-``export_tum_trajectory``; the keyframe dumps serve checkpoints, which are
-not ported): JSON trajectories under ``<save_path>/traj/`` and the
-TUM-format export (``t tx ty tz qx qy qz qw``) that external trajectory
-evaluators read.
+Port of ``super_primitive_tpu/odometry/io.py``, in the same layout and with
+the same npz keys, so a checkpoint that either package writes loads in the
+other:
+
+  <save_path>/curr_kfs/<tag>/kf_<ts>.npz   one keyframe (``dump_kf``)
+  <save_path>/curr_kfs/<tag>/window.txt    the window's timestamps
+  <save_path>/traj/kf_traj_<tag>.json      keyframe trajectory
+  <save_path>/traj/track_traj_<tag>.json   tracked trajectory
+  <save_path>/traj/frame_timestamps_<tag>.json
+
+Everything here is numpy on the host: a checkpoint does not depend on the
+device it was written from.  ``export_tum_trajectory`` writes the TUM format
+(``t tx ty tz qx qy qz qw``) that external trajectory evaluators read.
 """
 
 from __future__ import annotations
@@ -14,6 +22,30 @@ import os
 
 import numpy as np
 
+from .window import HostKeyFrame
+
+
+def dump_kf(path: str, kf: HostKeyFrame) -> None:
+    """Write ``kf`` to ``<path>/kf_<timestamp>.npz``."""
+    os.makedirs(path, exist_ok=True)
+    np.savez_compressed(
+        os.path.join(path, f"kf_{kf.timestamp}.npz"),
+        timestamp=kf.timestamp, image=np.asarray(kf.image), K=np.asarray(kf.K),
+        regions=np.asarray(kf.regions), logdepth_perseg=np.asarray(kf.logdepth_perseg),
+        keypoints_rc=np.asarray(kf.keypoints_rc), pose=np.asarray(kf.pose),
+        kp_logdepth=np.asarray(kf.kp_logdepth), affine=np.asarray(kf.affine),
+    )
+
+
+def load_kf(path: str, timestamp: str) -> HostKeyFrame:
+    """Read the keyframe ``dump_kf`` wrote for ``timestamp``."""
+    d = np.load(os.path.join(path, f"kf_{timestamp}.npz"))
+    return HostKeyFrame(
+        timestamp=str(d["timestamp"]), image=d["image"], K=d["K"], regions=d["regions"],
+        logdepth_perseg=d["logdepth_perseg"], keypoints_rc=d["keypoints_rc"],
+        pose=d["pose"], kp_logdepth=d["kp_logdepth"], affine=d["affine"],
+    )
+
 
 def save_trajectory(path: str, traj: dict, tag: str, name: str = "kf_traj") -> str:
     """``traj`` maps timestamp string -> 4x4 pose."""
@@ -22,6 +54,13 @@ def save_trajectory(path: str, traj: dict, tag: str, name: str = "kf_traj") -> s
     with open(fp, "w") as f:
         json.dump({ts: np.asarray(T).tolist() for ts, T in traj.items()}, f)
     return fp
+
+
+def load_trajectory(fp: str) -> dict:
+    """The trajectory ``save_trajectory`` wrote: timestamp -> 4x4 array."""
+    with open(fp) as f:
+        raw = json.load(f)
+    return {ts: np.asarray(T) for ts, T in raw.items()}
 
 
 def export_tum_trajectory(traj: dict, timestamps: dict, out_path: str) -> str:

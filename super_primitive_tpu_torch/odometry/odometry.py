@@ -22,13 +22,20 @@ The frontend is injected (``process_to_kf(image, K)`` -> host geometry,
 ``process_to_supp_kf`` -> image only), so the fake SAM/normals frontend and
 the GT-depth stub are interchangeable.
 
-Not ported here: checkpoints (``save_every``, ``restore``, ``dump_kfs``;
-ROADMAP.md, queue 1, item 5) and the live viewer hook.
+Checkpoints (``io.py``'s layout, which the JAX package shares):
+``save_state`` writes the window's host keyframes and the trajectories,
+every ``save_every`` frames and at the end of a run when that is set;
+``config.restore`` makes ``run`` reload a checkpoint (``load_state``) and
+continue after its frame; ``dump_kfs`` writes each keyframe that leaves the
+window.  ``live_cb(odom, frame_id)``, when set, runs after every frame (the
+live viewer of ``run_sfm --live-viz``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Optional, Protocol
 
@@ -69,10 +76,6 @@ class Odometry:
         for part in (a.track, a.mapping):
             if part.solver not in ("adam", "gn"):
                 raise ValueError(f"unknown solver {part.solver!r}; use adam or gn")
-        if config.restore is not None or config.save_every > 0 or config.dump_kfs:
-            raise NotImplementedError(
-                "odometry checkpoints (restore, save_every, dump_kfs) are not ported "
-                "yet (ROADMAP.md, queue 1, item 5)")
         float32_matmuls()
         self.config = config
         self.frontend = frontend
@@ -114,6 +117,9 @@ class Odometry:
         # the frontend's stages (sam rounds, bini, split) land in this timer
         if getattr(frontend, "timer", "absent") is None:
             frontend.timer = self.timer
+        # callable(odom, frame_id) after every frame, set by callers
+        # (run_sfm --live-viz, viz/live.py)
+        self.live_cb = None
 
     # ------------------------------------------------------------- helpers
     @staticmethod
@@ -147,14 +153,7 @@ class Odometry:
         K = kf_data["K"]
         N_i, Hg, Wg = regions.shape
 
-        if self.seg_cap is None:
-            # capacities fixed at the first keyframe
-            self.seg_cap = max(64, int(np.ceil(N_i * 1.5 / 32) * 32))
-            self.point_cap = int(np.ceil(max(int(regions.sum()) * 2, Hg * Wg) / 1024) * 1024)
-            self.buffers = window.empty_window(
-                self.window_size, self.supp_cap, image.shape[:2], image.shape[2],
-                self.seg_cap, self.point_cap, device=self.device)
-            self.supp_valid_host = np.zeros((self.window_size, self.supp_cap), bool)
+        self._ensure_window(regions, image)
 
         if self.num_kfs < 2:
             if self.mono_init:
@@ -189,22 +188,17 @@ class Odometry:
         )
         if self.num_kfs == self.window_size:
             with self.timer.stage("kf_roll"):
+                if self.config.dump_kfs:
+                    self._sync_host_logdepth()
+                    io.dump_kf(self.config.save_path + "/curr_kfs", self.host_kfs[0])
                 self.host_kfs.pop(0)
                 window.roll_window(self.buffers)
                 self.supp_valid_host = np.concatenate(
                     [self.supp_valid_host[1:], np.zeros_like(self.supp_valid_host[:1])])
                 self.num_kfs -= 1
 
-        slot = self.num_kfs
         with self.timer.stage("kf_slot_put"):
-            bundle = build_bundle_np(regions, logdepth, capacity=self.point_cap,
-                                     device=self.device)
-            kp_base = logdepth[np.arange(N_i), keypoints_rc[:, 0], keypoints_rc[:, 1]]
-            window.set_keyframe_slot(self.buffers, slot, image, K, pose, kp_logdepth,
-                                     self.current_aff, bundle, kp_base)
-        self.supp_valid_host[slot] = False
-        self.host_kfs.append(host_kf)
-        self.num_kfs += 1
+            self._put_keyframe(host_kf)
         self.global_kf_trajectory[timestamp] = np.asarray(pose)
         self._kf_pyramid_cache = None
         wall = time.perf_counter() - t0
@@ -215,6 +209,32 @@ class Odometry:
             if self.timer.counts[k] > counts0.get(k, 0)
         }
         print(f"[kf] added {timestamp} (N={N_i}, {wall:.2f}s; stages_ms={stages})", flush=True)
+
+    def _ensure_window(self, regions: np.ndarray, image: np.ndarray):
+        """Allocate the window at the first keyframe: capacities fixed by
+        its segment count and region pixels."""
+        if self.seg_cap is not None:
+            return
+        N_i, Hg, Wg = regions.shape
+        self.seg_cap = max(64, int(np.ceil(N_i * 1.5 / 32) * 32))
+        self.point_cap = int(np.ceil(max(int(regions.sum()) * 2, Hg * Wg) / 1024) * 1024)
+        self.buffers = window.empty_window(
+            self.window_size, self.supp_cap, image.shape[:2], image.shape[2],
+            self.seg_cap, self.point_cap, device=self.device)
+        self.supp_valid_host = np.zeros((self.window_size, self.supp_cap), bool)
+
+    def _put_keyframe(self, kf: window.HostKeyFrame):
+        """Write host keyframe ``kf`` into the next free window slot."""
+        slot = self.num_kfs
+        n = kf.regions.shape[0]
+        bundle = build_bundle_np(kf.regions, kf.logdepth_perseg, capacity=self.point_cap,
+                                 device=self.device)
+        kp_base = kf.logdepth_perseg[np.arange(n), kf.keypoints_rc[:, 0], kf.keypoints_rc[:, 1]]
+        window.set_keyframe_slot(self.buffers, slot, kf.image, kf.K, kf.pose, kf.kp_logdepth,
+                                 kf.affine, bundle, kp_base)
+        self.supp_valid_host[slot] = False
+        self.host_kfs.append(kf)
+        self.num_kfs += 1
 
     # ------------------------------------------------------------ tracking
     def _kf_track_pyramid(self):
@@ -477,15 +497,71 @@ class Odometry:
             print(f"new kf: large pose diff {diff:.3f}")
         return is_kf, scale
 
+    # -------------------------------------------------- checkpoint / resume
+    def save_state(self, tag: Optional[str] = None) -> str:
+        """Checkpoint: the window's host keyframes under
+        ``<save_path>/curr_kfs/<tag>/`` with ``window.txt``, and both
+        trajectories and the frame timestamps under ``traj/``."""
+        tag = tag or (self.current_ts or "init")
+        with self.timer.stage("save_state"):
+            self._sync_host_logdepth()
+            kf_dir = f"{self.config.save_path}/curr_kfs/{tag}"
+            for kf in self.host_kfs:
+                io.dump_kf(kf_dir, kf)
+            traj_dir = f"{self.config.save_path}/traj"
+            io.save_trajectory(traj_dir, self.global_kf_trajectory, tag)
+            io.save_trajectory(traj_dir, self.global_track_trajectory, tag, name="track_traj")
+            with open(f"{traj_dir}/frame_timestamps_{tag}.json", "w") as f:
+                json.dump(self.frame_timestamps, f)
+            with open(f"{kf_dir}/window.txt", "w") as f:
+                f.write("\n".join(kf.timestamp for kf in self.host_kfs))
+        return kf_dir
+
+    def load_state(self, state_path: str, frame_id: int) -> int:
+        """Resume from the checkpoint of ``frame_id`` under ``state_path``:
+        the window's keyframes go back on the device, the trajectories and
+        frame timestamps back on the host; ``run`` continues at
+        ``frame_id + 1``.  Supporting frames are not restored."""
+        tag = self.id_to_timestamp(frame_id)
+        kf_dir = f"{state_path}/curr_kfs/{tag}"
+        with open(f"{kf_dir}/window.txt") as f:
+            timestamps = [line.strip() for line in f if line.strip()]
+        traj_dir = f"{state_path}/traj"
+        self.global_kf_trajectory = io.load_trajectory(f"{traj_dir}/kf_traj_{tag}.json")
+        self.global_track_trajectory = io.load_trajectory(f"{traj_dir}/track_traj_{tag}.json")
+        # the final TUM export needs the frames before the restore
+        ts_file = f"{traj_dir}/frame_timestamps_{tag}.json"
+        if os.path.exists(ts_file):
+            with open(ts_file) as f:
+                self.frame_timestamps.update(json.load(f))
+        else:  # a checkpoint without the file: read them from the dataset
+            for fid in set(self.global_kf_trajectory) | set(self.global_track_trajectory):
+                self.frame_timestamps[fid] = float(
+                    self.dataset[int(fid)].get("timestamp", int(fid)))
+        for ts in timestamps:
+            kf = io.load_kf(kf_dir, ts)
+            self._ensure_window(kf.regions, kf.image)
+            self._put_keyframe(kf)
+        self.current_track = self.host_kfs[-1].pose.copy()
+        self.current_aff = self.host_kfs[-1].affine.copy()
+        self.current_ts = self.host_kfs[-1].timestamp
+        self.initialised = len(self.host_kfs) >= 2
+        return frame_id
+
     # ------------------------------------------------------------ main loop
     def run(self, max_frames: Optional[int] = None):
         start_id = self.config.dataset.start_id
-        frame0 = self.dataset[start_id]
-        ts0 = self.id_to_timestamp(start_id)
-        self.frame_timestamps[ts0] = float(frame0.get("timestamp", start_id))
-        pose0 = np.asarray(frame0["T"], np.float32)
-        self.current_track = pose0
-        self.init_keyframe(frame0, pose0, ts0)
+        if self.config.restore is not None:
+            with self.timer.stage("load_state"):
+                start_id = self.load_state(self.config.restore.path,
+                                           self.config.restore.frame_id)
+        else:
+            frame0 = self.dataset[start_id]
+            ts0 = self.id_to_timestamp(start_id)
+            self.frame_timestamps[ts0] = float(frame0.get("timestamp", start_id))
+            pose0 = np.asarray(frame0["T"], np.float32)
+            self.current_track = pose0
+            self.init_keyframe(frame0, pose0, ts0)
 
         end = len(self.dataset) if max_frames is None else min(
             len(self.dataset), start_id + max_frames)
@@ -520,9 +596,18 @@ class Odometry:
                 else:
                     self.mapping_scheduled = True
 
+            if frame_id > 0 and self.config.save_every > 0 and \
+                    frame_id % self.config.save_every == 0:
+                self.save_state()
+            if self.live_cb is not None:
+                with self.timer.stage("live_cb"):
+                    self.live_cb(self, frame_id)
+
         self._sync_host_logdepth()
         traj_dir = self.config.save_path + "/traj"
         io.save_trajectory(traj_dir, self.global_kf_trajectory, "final")
         io.save_trajectory(traj_dir, self.global_track_trajectory, "final", name="track_traj")
+        if self.config.save_every > 0:
+            self.save_state()
         print("\n[timing]\n" + self.timer.report(), flush=True)
         return self.global_kf_trajectory

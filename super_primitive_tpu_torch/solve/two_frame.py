@@ -5,9 +5,11 @@ Port of ``super_primitive_tpu/solve/two_frame.py`` (``solve_two_frame``,
 coarse to fine, ``num_iters`` retraction-Adam steps minimise the summed
 photometric costs of the supporting frames.  The Adam state carries across
 levels (the reference builds its optimizer once), and the very first
-iteration is viz-only.  The GN variant poses the same problem as the
-Schur-complement system of ``solve/gn_mapping.py`` on a one-keyframe
-window.
+iteration is viz-only.  With ``snapshot_cb`` a level runs in chunks
+between which the callback sees the parameters (the live viewer of
+``run_sfm --live-viz``); the solve is the same as unchunked.  The GN
+variant poses the same problem as the Schur-complement system of
+``solve/gn_mapping.py`` on a one-keyframe window.
 """
 
 from __future__ import annotations
@@ -55,12 +57,19 @@ def solve_two_frame(
     init_poses: torch.Tensor,
     init_kp_logdepth: torch.Tensor,
     cfg: TwoFrameConfig = TwoFrameConfig(),
+    snapshot_cb=None,
+    snapshot_every: int = 0,
 ):
     """Coarse-to-fine joint pose + depth optimisation.
 
     ``init_poses`` is (B, 4, 4) T_support_from_src for each supporting frame.
     Returns (poses (B, 4, 4), kp_logdepth (N,), losses: one (num_iters,)
-    tensor per level)."""
+    tensor per level).
+
+    ``snapshot_cb(level, iters_done, params, chunk_losses)``, with
+    ``snapshot_every`` k > 0, runs each level as ceil(num_iters / k) chunks
+    and is called after each; the parameters and the Adam state carry
+    across chunks, so the solve equals the unchunked one."""
     bundle = src_pyr.bundle
     geo = src_pyr.geo
     if bundle is None or geo is None:
@@ -78,6 +87,8 @@ def solve_two_frame(
     )
     optimizer = make_optimizer(params, cfg.lr_depth, cfg.lr_pose)
 
+    snapshots = bool(snapshot_cb is not None and snapshot_every)
+    chunk = snapshot_every if snapshots else cfg.num_iters
     all_losses = []
     for level in range(src_pyr.num_levels):
         src_samples = ph.precompute_source(src_pyr.images[level], bundle, geo_dims)
@@ -93,9 +104,16 @@ def solve_two_frame(
                 ))
             return total
 
-        all_losses.append(run_adam(
-            loss_fn, params, optimizer, cfg.num_iters, skip_first_step=level == 0,
-        ))
+        done, level_losses = 0, [torch.zeros(0, device=device)]
+        while done < cfg.num_iters:
+            k = min(chunk, cfg.num_iters - done)
+            losses = run_adam(loss_fn, params, optimizer, k,
+                              skip_first_step=level == 0 and done == 0)
+            done += k
+            level_losses.append(losses)
+            if snapshots:
+                snapshot_cb(level, done, params, losses)
+        all_losses.append(torch.cat(level_losses))
 
     with torch.no_grad():
         poses = current_poses(params)

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of ``super_primitive_tpu_torch``
-and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV, PIL or
-the JAX package, and importing the dataset loaders, the depth completion
-and ``evaluate_void`` loads none of them; and ``chip_smoke.py`` fails
-without printing a result where there is no card, or where the package is
-not beside it."""
+and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV, PIL,
+matplotlib or the JAX package, and importing the dataset loaders, the depth
+completion, ``evaluate_void``, the odometry loop and its checkpoints,
+``viz/``, ``run_sfm`` and ``convert_traj_to_tum`` loads none of them; and
+``chip_smoke.py`` fails without printing a result where there is no card,
+or where the package is not beside it."""
 
 import os
 import re
@@ -17,7 +18,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|PIL|super_primitive_tpu(?!_torch))\b",
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|PIL|matplotlib"
+    r"|super_primitive_tpu(?!_torch))\b",
     re.MULTILINE,
 )
 
@@ -37,6 +39,8 @@ STANDALONE_MODULES = [
     "data", "data.image_io", "data.undistort", "data.transforms", "data.tum",
     "data.replica", "data.void", "depth_completion.completion", "depth_completion.fill_in",
     "depth_completion.metrics", "evaluate_void", "eval.dataset_trees",
+    "odometry.io", "odometry.odometry", "lie.sim3", "viz", "viz.export", "viz.viewer",
+    "viz.live", "viz.serve", "run_sfm", "convert_traj_to_tum", "eval.e2e_synthetic",
 ]
 
 
@@ -46,7 +50,8 @@ def test_module_loads_nothing_forbidden(module):
     package, not even through another module."""
     code = (f"import sys, super_primitive_tpu_torch.{module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'cv2', 'PIL', 'super_primitive_tpu')); print(bad)")
+            "('jax', 'flax', 'optax', 'cv2', 'PIL', 'matplotlib', 'super_primitive_tpu')); "
+            "print(bad)")
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]
