@@ -97,10 +97,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tracked frames below 0.05; ``save_state`` s and bytes, ``load_state``
      s, ms per tracked frame in each leg, keyframes per leg; K2 and K3
      against their plain versions on the second leg's inputs.
+  11. the multi-device layouts (``parallel/``): (a) ``dryrun_multichip(1)``
+     over NCCL, its six sharded flows on the card; (b) two ranks over gloo,
+     both on this card (NCCL takes one rank a card), at full width:
+     ``assemble`` and ``gn_mapping`` (5 LM iterations) on phase 7b's window
+     recorded at its fullest ``gn_mapping`` call, points over sp = 2, within
+     ``SHARD_TOL`` of the unsharded calls; the first VO GN keyframe's BiNI calls at each
+     crop bucket, segments over 2 ranks on K2, within 1e-5 (bit-identity
+     reported); 128 prompts of phase 8's keyframe through
+     ``_decode_select``, decode-only ranks given phase 8's decoder weights
+     and encoder features, prompts over 2 ranks on K3, the packed masks,
+     picks and K3's counts exact; every rank holding every output bit for
+     bit; each flow's sharded and unsharded times (both ranks share the
+     card: not a scaling measurement) and each rank's peak memory; K2 and
+     K3 launched on every rank and held to their plain versions on the
+     ranks' recorded inputs.
 
 Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b,
-8, 9 and 10 (at its restore) and read just after; a kernel of a path that was not launched there
-fails the run.
+8, 9, 10 (at its restore) and 11b (in each rank) and read just after; a
+kernel of a path that was not launched there fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it (phase 9 keeps K2's largest and longest-running calls whole), and
 after the path each kernel is checked and timed on them.
@@ -174,6 +189,11 @@ TUM_FRAMES, REPLICA_FRAMES = 10, 5
 TUM_KF_TRANSLATION = 0.04
 # phase 10: the GN VO run split at a frame and resumed from its checkpoint
 RESUME_FRAMES, RESUME_SPLIT, RESUME_SAVE_EVERY = 24, 12, 4
+# phase 11b's bounds, sharded against unsharded on the card: the JAX
+# package's own (tests/test_multichip.py); BiNI's segments solve alone, so
+# the bound there is 1e-5 and bit-identity is reported
+SHARD_TOL = {"H": 2e-4, "assemble": 1e-5, "assemble_rel": 1e-5, "gn_pose": 1e-3,
+             "gn_cost_rel": 1e-3, "bini": 1e-5, "decode": 1e-4}
 # phase 10's window fields, held bit for bit after load_state
 RESUME_WINDOW_FIELDS = ("images", "K", "poses", "kp_logdepth", "affine", "kf_valid", "uv",
                         "seg_id", "base_logdepth", "point_valid", "num_valid", "kp_base")
@@ -321,6 +341,64 @@ def first_inputs(torch, stencil, name: str):
         yield seen
     finally:
         setattr(stencil, name, wrapped)
+
+
+@contextlib.contextmanager
+def kept_calls(module, name: str, keep):
+    """While open, ``module.<name>`` hands each call's (args, kwargs) to
+    ``keep`` before it runs."""
+    wrapped = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        keep(args, kwargs)
+        return wrapped(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, wrapped)
+
+
+def keep_fullest_gn(rec: dict):
+    """A :func:`kept_calls` hook for ``gn_mapping``: a copy of the last call
+    over the most keyframes, as flow arguments (``parallel/dryrun.py``)."""
+    from super_primitive_tpu_torch.odometry.mapper import MapMasks, MapSlots
+    from super_primitive_tpu_torch.parallel.dryrun import window_to
+
+    def keep(args, kw):
+        b = args[0]
+        kfs = int((b.num_valid > 0).sum())
+        if kfs >= rec.get("keyframes", 0):
+            rec.update(keyframes=kfs, buffers=window_to(b, b.images.device),
+                       slots=MapSlots(*(a.copy() for a in args[1:4])),
+                       masks=MapMasks(*(a.copy() for a in args[4:7])), geo_dims=args[7],
+                       options=dict(kw))
+    return keep
+
+
+def keep_first_bini(rec: dict):
+    """A :func:`kept_calls` hook for ``integrate_normals_cropped``: a copy of
+    the first call at each crop, as flow arguments."""
+    def keep(args, kw):
+        crop = args[4] if len(args) > 4 else kw["crop"]
+        if crop not in rec:
+            rec[crop] = dict(normals=args[0].clone(), masks=args[1].clone(), K=args[2].clone(),
+                             config=args[3], crop=crop,
+                             return_crops=kw.get("return_crops", False))
+    return keep
+
+
+def host_copy(x):
+    """``x`` with every tensor and window buffer moved to the host."""
+    from super_primitive_tpu_torch.odometry.window import WindowBuffers
+    from super_primitive_tpu_torch.parallel.dryrun import window_to
+
+    if isinstance(x, WindowBuffers):
+        return window_to(x, "cpu")
+    if isinstance(x, dict):
+        return {k: host_copy(v) for k, v in x.items()}
+    return x.cpu() if hasattr(x, "cpu") and hasattr(x, "is_cuda") else x
 
 
 def bini_fields(torch, bini, N, H, W, seed):
@@ -1141,18 +1219,26 @@ def run_vo_gn(torch, stencil, k3, adam: dict, adam_inputs: dict):
     level 2 only, 30 LM iterations; GN mapping, the mono init's with the
     scale gauge pinned; fused frames after it), through the same frontend on
     K3 and K2; then the kernels against their plain versions on the path's
-    inputs that phase 7 did not see."""
+    inputs that phase 7 did not see.  Keeps, for phase 11, a copy of the
+    window and arguments of its ``gn_mapping`` call over the most keyframes
+    and of its first BiNI call at each crop bucket."""
     import numpy as np
 
     from super_primitive_tpu_torch.eval.e2e_synthetic import run_e2e
+    from super_primitive_tpu_torch.frontend import process_frame
+    from super_primitive_tpu_torch.odometry import odometry
 
+    kept = {"gn": {}, "bini": {}}
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
-            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+            first_inputs(torch, k3, "phase_counts") as k3_inputs, \
+            kept_calls(odometry, "gn_mapping", keep_fullest_gn(kept["gn"])), \
+            kept_calls(process_frame, "integrate_normals_cropped", keep_first_bini(kept["bini"])):
         stencil.reset_launch_counts()
         k3.reset_launch_counts()
         r = run_e2e("gn", frames=VO_FRAMES, device="cuda",
                     save_path=str(Path("build") / "chip_smoke" / "vo_gn"))
         launches = {**stencil.launch_counts, **k3.launch_counts}
+    kept = host_copy(kept)
     timer, odom, ate = r["timer"], r["odom"], r["ate"]["rmse"]
     counts, totals = timer.counts, timer.totals
     tracked = counts.get("fused_frame", 0) + counts.get("track", 0)
@@ -1199,7 +1285,9 @@ def run_vo_gn(torch, stencil, k3, adam: dict, adam_inputs: dict):
     print("kernels on the GN VO path's inputs: " + json.dumps(summary["kernel_checks"]),
           flush=True)
     summary["device_busy"] = gn_busy(torch, odom)
-    return launches, summary
+    if not kept["gn"] or not kept["bini"]:
+        fail("the GN VO slice made no gn_mapping or no cropped BiNI call to keep")
+    return launches, summary, kept
 
 
 def gn_busy(torch, odom) -> dict:
@@ -1481,6 +1569,16 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
         times[f"{name}_busy_ms"], times[f"{name}_kernels"] = busy_ms(torch, fn)
         times[f"{name}_idle_share"] = 1.0 - times[f"{name}_busy_ms"] / times[f"{name}_ms"]
     times["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    # phase 11's prompt selection: a round of this keyframe's prompts on the
+    # decoder's weights and the encoder's features
+    r = np.random.default_rng(10)
+    pts = torch.from_numpy((r.random((cfg.frontend.num_pts, 2)) * [h2w2[1] - 1, h2w2[0] - 1])
+                           .round().astype(np.float32))
+    decode_inputs = {
+        "state_dict": {f"{m}.{k}": v.detach().cpu() for m in ("prompt_encoder", "mask_decoder")
+                       for k, v in getattr(predictor.model, m).state_dict().items()},
+        "cfg": VIT_H, "features": predictor._features.cpu(), "input_hw": tuple(h2w2),
+        "pts": pts, "out_size": 256, "compute_dtype": torch.bfloat16}
     times["phase_s"] = time.perf_counter() - t_phase
     print(f"real-net times on {card}: " + json.dumps({k: round(v, 4) for k, v in times.items()}),
           flush=True)
@@ -1490,7 +1588,7 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
                "vo_keyframes": odom.num_kfs, "vo_wall_s": vo_s,
                "vo_kf_add_s": [w for _, w, _ in odom.kf_add_log], "vo_ate_sim3": ate,
                "vo_stage_s": vo_stages, "launches": launches, "times": times}
-    return launches, k2_rows, k3_rows, summary
+    return launches, k2_rows, k3_rows, summary, decode_inputs
 
 
 @contextlib.contextmanager
@@ -2003,6 +2101,154 @@ def run_resume(torch, stencil, k3, card: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+def sharded_rank(mesh, jobs, checks):
+    """One rank of phase 11b: ``jobs`` with K2's and K3's launch counts
+    reset just before and read just after, and a copy of each kernel's
+    first inputs at every shape; then ``jobs`` again, timed; then
+    ``checks`` (not counted)."""
+    import torch
+
+    from super_primitive_tpu_torch.ops import phase_counts as k3
+    from super_primitive_tpu_torch.ops import stencil
+    from super_primitive_tpu_torch.parallel.dryrun import run_flows
+
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
+            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        outs = run_flows(mesh, jobs)
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    warm = [o["seconds"] for o in run_flows(mesh, jobs)]
+    return {"outs": outs, "warm_s": warm, "checks": run_flows(mesh, checks),
+            "launches": launches, "recorded": {"bini_cg": list(k2_inputs.values()),
+                                               "phase_counts": list(k3_inputs.values())},
+            "peak_GiB": torch.cuda.max_memory_allocated(mesh.device) / 2**30 if on_card else None}
+
+
+def max_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def run_sharded(torch, stencil, k3, gn: dict, bini_calls: dict, decode: dict, card: str):
+    """Phase 11: (a) ``dryrun_multichip(1)`` over NCCL; (b) the full-width
+    sharded flows on two gloo ranks on this card against the same flows
+    unsharded in this process; then K2 and K3 against their plain versions
+    on the ranks' recorded inputs."""
+    from super_primitive_tpu_torch.parallel import dryrun, launch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(1, device="cuda")[0]
+    dry_s = time.perf_counter() - t0
+    if dry["mesh"] != {"dp": 1, "sp": 1} or not dry["replicated"]:
+        fail(f"dryrun_multichip(1) over NCCL: {dry}")
+
+    opts = gn["options"]
+    win = dict(buffers=gn["buffers"], slots=gn["slots"], masks=gn["masks"],
+               geo_dims=gn["geo_dims"])
+    names = ["assemble", "gn_mapping"] + [f"bini_{c}" for c in sorted(bini_calls)] + ["decode"]
+    jobs = ([("assemble", dict(win, use_affine=opts.get("use_affine", False),
+                               point_stride=opts.get("point_stride", 1))),
+             # the LM budget of the JAX package's sharded test, whose bounds
+             # these are (5 iterations, no early stop): over a longer solve
+             # the damping path parts on float32 noise
+             ("gn_mapping", dict(win, **{**opts, "max_iters": 5, "tol": 0.0}))]
+            + [("bini", bini_calls[c]) for c in sorted(bini_calls)]
+            + [("decode", dict(decode, counts=False))])
+    checks = [("decode", dict(decode, counts=True))]
+    t0 = time.perf_counter()
+    ranks = launch.run(sharded_rank, 2, "gloo", "cuda", args=(jobs, checks), timeout=300,
+                       deadline=600)
+    ranks_s = time.perf_counter() - t0
+    with first_inputs(torch, stencil, "bini_cg") as plain_k2:
+        plain = dryrun.run_flows(None, jobs, device="cuda")
+    plain_warm = [o["seconds"] for o in dryrun.run_flows(None, jobs, device="cuda")]
+    plain_check = dryrun.run_flows(None, checks, device="cuda")[0]
+
+    flows = {}
+    for i, name in enumerate(names):
+        got, want = ranks[0]["outs"][i], plain[i]
+        row = {"sharded_s": max(r["warm_s"][i] for r in ranks), "unsharded_s": plain_warm[i],
+               "sharded_cold_s": max(r["outs"][i]["seconds"] for r in ranks),
+               "replicated": all(r["outs"][i]["replicated"] for r in ranks)}
+        if name == "assemble":
+            errs = {}
+            for key, a, b in zip(("H", "g_t", "D", "gl", "Bs", "cost"), got["lin"], want["lin"]):
+                b = b.cpu()
+                atol = SHARD_TOL["H"] if key == "H" else SHARD_TOL["assemble"]
+                excess = float(((a - b).abs() - atol - SHARD_TOL["assemble_rel"] * b.abs()).max())
+                errs[key] = {"max_abs": max_diff(a, b), "within": excess <= 0}
+            row["errors"] = errs
+            ok = all(e["within"] for e in errs.values())
+        elif name == "gn_mapping":
+            pose = max_diff(got["poses"], want["poses"].cpu())
+            cost = abs(float(got["final_cost"]) / float(want["final_cost"]) - 1)
+            row.update(pose_max_abs=pose, final_cost_rel=cost,
+                       final_cost=[float(got["final_cost"]), float(want["final_cost"])],
+                       iters=[got["num_iters"], want["num_iters"]],
+                       iters_by_rank=[r["outs"][i]["num_iters"] for r in ranks])
+            ok = (pose <= SHARD_TOL["gn_pose"] and cost <= SHARD_TOL["gn_cost_rel"]
+                  and len(set(row["iters_by_rank"])) == 1)
+        elif name.startswith("bini"):
+            zt = [max_diff(a, b.cpu()) for a, b in zip(got["out"], want["out"])]
+            row.update(segments=int(got["out"][0].shape[0]), max_abs=zt[0],
+                       bit_identical=all(torch.equal(a, b.cpu())
+                                         for a, b in zip(got["out"], want["out"])))
+            ok = zt[0] <= SHARD_TOL["bini"] and all(e == 0 for e in zt[1:])
+        else:
+            exact = {k: bool(torch.equal(got[k], want[k].cpu())) for k in ("packed", "valid",
+                                                                            "pick")}
+            counts = bool(torch.equal(ranks[0]["checks"][0]["counts"],
+                                      plain_check["counts"].cpu()))
+            errs = {k: max_diff(got[k], want[k].cpu()) for k in ("iou", "boxes")}
+            row.update(prompts=int(got["pick"].shape[0]), exact=exact, k3_counts_exact=counts,
+                       max_abs=errs)
+            ok = all(exact.values()) and counts and max(errs.values()) <= SHARD_TOL["decode"]
+        flows[name] = row
+        if not (ok and row["replicated"]):
+            fail(f"phase 11b's sharded {name} against unsharded: {json.dumps(row)}")
+
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    by_rank = [r["launches"] for r in ranks]
+    if any(r["bini_cg"] == 0 or r["phase_counts"] == 0 for r in by_rank):
+        fail(f"a rank of the sharded path did not launch K2 and K3: {by_rank}")
+    recorded = {name: [[a.cuda() if torch.is_tensor(a) else a for a in args]
+                       for r in ranks for args in r["recorded"][name]]
+                for name in ("bini_cg", "phase_counts")}
+    k2_rows = [k2_row(torch, stencil, *args) for args in recorded["bini_cg"]]
+    k3_rows = [k3_row(torch, k3, *args) for args in recorded["phase_counts"]]
+    # is K2 batch-invariant?  A rank's first K2 call at each crop against
+    # the unsharded first call on the whole batch, on the rank's rows
+    k2_batch = []
+    for rank, rec in enumerate(ranks):
+        for args in rec["recorded"]["bini_cg"]:
+            n, H, W = args[0].shape
+            full = next(a for shape, a in plain_k2.items() if shape[1:] == (H, W))
+            lo = rank * n
+            m = min(n, full[0].shape[0] - lo)
+            mine = [a.cuda() if torch.is_tensor(a) else a for a in args]
+            same_in = all(torch.equal(a[:m], b[lo:lo + m]) for a, b in zip(mine, full)
+                          if torch.is_tensor(a))
+            (x_r, it_r), (x_f, it_f) = stencil.bini_cg(*mine), stencil.bini_cg(*full)
+            k2_batch.append({"field": [H, W], "rank": rank, "rows": m, "inputs_equal": same_in,
+                             "outputs_equal": bool(torch.equal(x_r[:m], x_f[lo:lo + m])
+                                                   and torch.equal(it_r[:m], it_f[lo:lo + m]))})
+    summary = {"dryrun_nccl_world1": dry, "dryrun_s": dry_s, "ranks_s": ranks_s,
+               "k2_batch_invariance": k2_batch,
+               "window": {"keyframes": gn["keyframes"], "geo_dims": list(gn["geo_dims"]),
+                          "point_capacity": int(gn["buffers"].uv.shape[1]),
+                          "points": [int(n) for n in gn["buffers"].num_valid]},
+               "flows": flows, "launches": launches, "launches_by_rank": by_rank,
+               "peak_GiB_by_rank": [r["peak_GiB"] for r in ranks],
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"sharded flows on {card} (2 gloo ranks on one card: not a scaling measurement): "
+          + json.dumps(summary), flush=True)
+    return launches, k2_rows, k3_rows, summary
+
+
 def main() -> int:
     # torch.profiler tears CUPTI down after each session and sets it up again
     # at the next; once CUDA graphs have run (device_ms replays them) a later
@@ -2049,13 +2295,16 @@ def main() -> int:
     small_input_agreement(torch)
     gn_small = gn_card_vs_cpu(torch)
     vo_launches, k2_vo, k3_vo, vo, vo_inputs = run_vo(torch, stencil, k3)
-    vo_gn_launches, vo_gn = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
-    rn_launches, k2_rn, k3_rn, rn = run_real_nets(torch, stencil, k3,
-                                                  Path(pkg.__file__).resolve().parent, smi)
+    vo_gn_launches, vo_gn, sharded_inputs = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
+    rn_launches, k2_rn, k3_rn, rn, decode_inputs = run_real_nets(
+        torch, stencil, k3, Path(pkg.__file__).resolve().parent, smi)
     void_launches, k2_void, k3_void, void = run_void(torch, stencil, k3,
                                                      Path(pkg.__file__).resolve().parent, smi)
     torch.cuda.empty_cache()
     resume_launches, resume = run_resume(torch, stencil, k3, smi)
+    torch.cuda.empty_cache()
+    sharded_launches, k2_sh, k3_sh, sharded = run_sharded(
+        torch, stencil, k3, sharded_inputs["gn"], sharded_inputs["bini"], decode_inputs, smi)
 
     def path_sums(rows):
         """A path's kernel numbers summed over its recorded inputs."""
@@ -2097,7 +2346,8 @@ def main() -> int:
                                 "vo_gn": vo_gn_launches["bini_apply"],
                                 "real_nets": rn_launches["bini_apply"],
                                 "void": void_launches["bini_apply"],
-                                "resume": resume_launches["bini_apply"]}),
+                                "resume": resume_launches["bini_apply"],
+                                "sharded": sharded_launches["bini_apply"]}),
         entry("bini_cg", "super_primitive_tpu/ops/pallas_stencil.py:175",
               vo_launches["bini_cg"], k2_vo, k2,
               launches_by_path={"two_frame": k2_launches["bini_cg"],
@@ -2106,9 +2356,11 @@ def main() -> int:
                                 "vo_gn": vo_gn_launches["bini_cg"],
                                 "real_nets": rn_launches["bini_cg"],
                                 "void": void_launches["bini_cg"],
-                                "resume": resume_launches["bini_cg"]},
+                                "resume": resume_launches["bini_cg"],
+                                "sharded": sharded_launches["bini_cg"]},
               two_frame_path_shapes=k2_path, real_nets_path_shapes=k2_rn,
-              void_path_shapes=k2_void, void_path=path_sums(k2_void)),
+              void_path_shapes=k2_void, void_path=path_sums(k2_void),
+              sharded_path_shapes=k2_sh, sharded_path=path_sums(k2_sh)),
         entry("phase_counts", "super_primitive_tpu/ops/pallas_phase_counts.py:77",
               vo_launches["phase_counts"], k3_vo, k3_checks,
               launches_by_path={"two_frame_gn": tf_gn_launches["phase_counts"],
@@ -2116,15 +2368,18 @@ def main() -> int:
                                 "vo_gn": vo_gn_launches["phase_counts"],
                                 "real_nets": rn_launches["phase_counts"],
                                 "void": void_launches["phase_counts"],
-                                "resume": resume_launches["phase_counts"]},
+                                "resume": resume_launches["phase_counts"],
+                                "sharded": sharded_launches["phase_counts"]},
               real_nets_path_shapes=k3_rn, void_path_shapes=k3_void,
-              void_path=path_sums(k3_void)),
+              void_path=path_sums(k3_void), sharded_path_shapes=k3_sh,
+              sharded_path=path_sums(k3_sh)),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))
     print(json.dumps({"real_nets": rn}))
     print(json.dumps({"void": void}))
     print(json.dumps({"resume": resume}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ inside.  The per-segment constant of zt is fixed to mean 0 in the mask.
 The CG runs on the stencil kernels of ``ops/stencil.py``: a field small
 enough for one thread-block cluster goes to K2 (the whole CG per segment),
 a larger one to ``_pcg`` here, which calls K1 once per iteration.
+
+``group`` shards the segments over a process group
+(``parallel.mesh.shard_rows``): each rank solves its contiguous block of
+segments and ``gather_rows`` returns them in the unsharded order.  K2 and
+``_pcg`` freeze each segment on its own and the global stop only ends the
+loop, so a segment's result does not depend on the others in its batch.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import stencil
+from ..parallel.mesh import gather_rows, shard_rows
 
 # Routing: a field goes to K2 where ``stencil.cg_holds`` says K2's plan
 # holds it on chip, at most 16 CTAs of at most ``stencil.K2_BAND_PIXELS_MAX``
@@ -265,14 +272,16 @@ def integrate_normals(
     K: torch.Tensor,
     config: BiniConfig = BiniConfig(),
     plain: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Integrate (H, W, 3) normals inside each of N segment masks.
 
     Returns per-segment log-depth fields (N, H, W), zero outside the mask
-    and gauge-fixed to mean 0 inside."""
-    masks = masks.to(torch.bool)
+    and gauge-fixed to mean 0 inside.  ``group``: the segments shard over
+    it (module docstring)."""
+    masks, part = shard_rows(masks.to(torch.bool), group)
     D, c_u, c_v = _coefficients(normals, K)
-    return _solve_given_coeffs(D, c_u, c_v, masks, config, plain)
+    return gather_rows(_solve_given_coeffs(D, c_u, c_v, masks, config, plain), part)
 
 
 def crop_origins(masks: torch.Tensor, crop_h: int, crop_w: int):
@@ -300,6 +309,7 @@ def integrate_normals_cropped(
     crop: int = 128,
     return_crops: bool = False,
     plain: bool = False,
+    group=None,
 ):
     """Crop-based integration: each segment solves on a crop x crop window
     around its bounding box instead of the full field.
@@ -307,8 +317,9 @@ def integrate_normals_cropped(
     Exact for segments whose bbox fits the window (the system only couples
     in-mask pixels); larger ones are truncated, so callers route those to
     :func:`integrate_normals`.  Returns (N, H, W) log-depth fields, or with
-    ``return_crops`` the tuple (zt_crops (N, ch, cw), r0 (N,), c0 (N,))."""
-    masks = masks.to(torch.bool)
+    ``return_crops`` the tuple (zt_crops (N, ch, cw), r0 (N,), c0 (N,)).
+    ``group``: the segments shard over it (module docstring)."""
+    masks, part = shard_rows(masks.to(torch.bool), group)
     N, H, W = masks.shape
     crop_h = min(crop, H)
     crop_w = min(crop, W)
@@ -325,10 +336,10 @@ def integrate_normals_cropped(
     )
     zt_crops = _solve_given_coeffs(D, c_u, c_v, crops_m, config, plain)
     if return_crops:
-        return zt_crops, r0, c0
+        return tuple(gather_rows(t, part) for t in (zt_crops, r0, c0))
     out = torch.zeros((N, H, W), dtype=zt_crops.dtype, device=zt_crops.device)
     out[n_idx, rows[:, :, None], cols[:, None, :]] = zt_crops
-    return out * masks.to(out.dtype)
+    return gather_rows(out * masks.to(out.dtype), part)
 
 
 def segment_bbox_sizes(masks_np):

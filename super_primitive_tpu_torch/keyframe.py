@@ -64,6 +64,11 @@ class PointBundle:
     valid: torch.Tensor          # (P,) bool, False for padding
     num_valid: int
 
+    # a bundle holds all its points: no global offset, nothing to reduce
+    # over (``parallel.mesh.ShardedBundle`` holds a range of them)
+    start = 0
+    group = None
+
     @property
     def capacity(self) -> int:
         return self.uv.shape[0]

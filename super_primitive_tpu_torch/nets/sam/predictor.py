@@ -31,9 +31,18 @@ port does not pad).  The statistics path decodes in chunks of
 (B, 32, 256, 256) upscaling activations then stay a chunk's size, and each
 prompt's outputs do not depend on the others in its batch.  The greedy NMS
 walks its order on the host over one fetched (C, C) overlap matrix.  None
-of this changes an output.  Not ported: ``predict_batched_points``,
-``postprocess_masks`` and statistics at ``out_size != S``, which need
-``jax.image.resize`` semantics and which no frontend path takes.
+of this changes an output.
+
+Over a process group (``parallel.mesh``): :meth:`SamPredictor.encode_batch`
+shards an image batch, :meth:`SamPredictor._decode_select` a round's
+prompts (K3 runs on each rank's own), and ``gather_rows`` returns every
+output in the unsharded order, so NMS after the gather sees the same keep
+order.  A predictor built with ``encoder=False`` decodes against features
+encoded elsewhere (:meth:`SamPredictor.set_features`).
+
+Not ported: ``predict_batched_points``, ``postprocess_masks`` and
+statistics at ``out_size != S``, which need ``jax.image.resize`` semantics
+and which no frontend path takes.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from torch import nn
 
 from ...image.resize import linear_resize
 from ...ops import phase_counts as k3
+from ...parallel.mesh import gather_rows, shard_rows
 from .image_encoder import VIT_H, ImageEncoderViT, ViTConfig
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
@@ -365,16 +375,20 @@ class Sam(nn.Module):
         self.mask_decoder = MaskDecoder(cfg.out_chans, gelu_approx=cfg.gelu_approx)
 
 
-def build_sam(params, cfg: ViTConfig, device) -> Sam:
+def build_sam(params, cfg: ViTConfig, device, encoder: bool = True) -> Sam:
     """A :class:`Sam` on ``device`` holding ``params`` (a state dict, numpy
     or tensors, in the published names; every key must be there), in
-    inference mode (no gradients)."""
+    inference mode (no gradients).  ``encoder=False`` leaves the image
+    encoder unbuilt (on the meta device) and reads none of its keys."""
     with torch.device("meta"):
         model = Sam(cfg)
-    model.load_state_dict(
-        {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-         .to(device=device, dtype=torch.float32, copy=True) for k, v in params.items()},
-        assign=True)
+    sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+          .to(device=device, dtype=torch.float32, copy=True)
+          for k, v in params.items() if encoder or not k.startswith("image_encoder.")}
+    missing, unexpected = model.load_state_dict(sd, assign=True, strict=encoder)
+    missing = [k for k in missing if not k.startswith("image_encoder.")]
+    if missing or unexpected:
+        raise RuntimeError(f"SAM state dict: missing {missing}, unexpected {unexpected}")
     return model.eval().requires_grad_(False)
 
 
@@ -405,16 +419,17 @@ class SamPredictor(PromptRounds):
     the JAX package's tree, or ``nets/synth.synth_sam_state_dict``).
     ``compute_dtype``: None keeps float32 with exact GELU (the parity
     path); ``torch.bfloat16`` casts the encoder and decoder weights once
-    and runs them in bf16 with tanh GELU."""
+    and runs them in bf16 with tanh GELU.  ``encoder=False``: decode only,
+    on features from :meth:`set_features` (no image encoder is built)."""
 
     def __init__(self, params, cfg: ViTConfig = VIT_H, compute_dtype=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", encoder: bool = True):
         if compute_dtype is not None:
             cfg = dataclasses.replace(cfg, gelu_approx=True)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
-        self.model = build_sam(params, cfg, self.device)
+        self.model = build_sam(params, cfg, self.device, encoder=encoder)
         if compute_dtype is not None:
             self.model.image_encoder.to(compute_dtype)
             self.model.mask_decoder.to(compute_dtype)
@@ -456,6 +471,23 @@ class SamPredictor(PromptRounds):
             x = x.to(self.compute_dtype)
         return self.model.image_encoder(x).float()
 
+    def encode_batch(self, images: torch.Tensor, group=None) -> torch.Tensor:
+        """(B, T, T, 3) float32 encoder inputs (normalised and padded, as
+        :meth:`encode` makes them) -> (B, S, S, C) float32 features.
+        ``group``: the batch shards over it, the features gather in batch
+        order."""
+        x, part = shard_rows(images, group)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return gather_rows(self.model.image_encoder(x).float(), part)
+
+    def set_features(self, features: torch.Tensor, input_hw: tuple[int, int]):
+        """Decode the following prompts against (1, S, S, C) ``features`` of
+        an image whose resized frame is ``input_hw``."""
+        self._features = features.to(self.device, torch.float32)
+        self._input_hw = tuple(input_hw)
+        self._last_image = None
+
     def set_image(self, image_hwc_uint8: np.ndarray):
         """Resize the longest side, normalise, pad and encode.  Setting the
         same array object twice in a row encodes once (the two prompt rounds
@@ -483,7 +515,11 @@ class SamPredictor(PromptRounds):
         return stats_from_lowres(lowres[:, 1:], iou[:, 1:], input_hw, out_size,
                                  self.target_length)
 
-    def _decode_select(self, pts, input_hw, out_size, iou_thr, stab_thr):
+    def _decode_select(self, pts, input_hw, out_size, iou_thr, stab_thr, group=None):
+        """``group``: the prompts shard over it; (packed, iou, valid, boxes,
+        pick) gather in prompt order."""
+        pts, part = shard_rows(pts, group)
         lowres, iou = self._decode(pts)
-        return select_from_lowres(lowres[:, 1:], iou[:, 1:], input_hw, out_size, iou_thr,
-                                  stab_thr, self.target_length)
+        out = select_from_lowres(lowres[:, 1:], iou[:, 1:], input_hw, out_size, iou_thr,
+                                 stab_thr, self.target_length)
+        return tuple(gather_rows(t, part) for t in out)

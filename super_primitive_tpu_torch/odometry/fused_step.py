@@ -18,6 +18,10 @@ needs.  The LM loops of steps 1 and 3 also read their stop flag once per
 iteration (``utils.timing.host_flag``), so their iteration counts are the
 JAX package's; nothing else waits for the card.  Every host value the step
 needs is on the device before it starts.
+
+On a window sharded over sp (``parallel.mesh.shard_window``) the tracking,
+the supp refinement and the gating render reduce over its group inside
+steps 1, 3 and 4, so the step's one fetch reads replicated values.
 """
 
 from __future__ import annotations

@@ -6,6 +6,10 @@ rendered depth.  (``rotation_difference`` gates nothing in the reference
 and is not ported.)  ``render_kf_depth`` and ``gating_tensors`` are the
 JAX package's ``odometry._render_kf_depth`` and ``_gating_metrics``, shared
 here by the odometry loop and the fused frame step.
+
+On a window sharded over sp each rank renders its points with empty
+pixels at +inf, the renders combine by ``reduce_min`` and only then do
+empty pixels become 0; the medians run on the replicated map.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import torch
 from ..cost import photometric as ph
 from ..geometry import projection
 from ..lie import se3
-from ..ops.scatter import render_depth
+from ..ops.scatter import empty_to_zero, render_depth_min
+from ..parallel.mesh import reduce_min
 
 
 def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -46,8 +51,8 @@ def render_kf_depth(buffers, kf_slot: int, pose: torch.Tensor, geo_dims) -> torc
     logd = ph.spread_logdepth(bundle, buffers.kp_logdepth[kf_slot], buffers.kp_base[kf_slot])
     pts = projection.unproject(bundle.uv, torch.exp(logd), buffers.K[kf_slot])
     pts = projection.transform(pts, delta)
-    depth, _ = render_depth(pts, buffers.K[kf_slot], geo_dims, valid=bundle.valid)
-    return depth
+    depth, _ = render_depth_min(pts, buffers.K[kf_slot], geo_dims, valid=bundle.valid)
+    return empty_to_zero(reduce_min(depth, bundle.group))
 
 
 def gating_tensors(buffers, kf_slot: int, pose: torch.Tensor, geo_dims) -> torch.Tensor:

@@ -29,6 +29,13 @@ step per segment: each point touches one scalar log-depth, so the normal
 equations are diagonal.  One forward-mode tangent (``torch.func.jvp``)
 gives every point's partial; the per-segment sums are a one-hot matmul
 (``solve.gn_mapping.segment_onehot``), a fixed order on every device.
+
+On a window sharded over the mesh (``parallel.mesh.shard_window``) the
+points split over sp and, in ``run_mapping``, each source's targets over dp
+(``parallel.mesh.shard_targets``).  Each rank backpropagates its partial
+loss; the gradients and the loss are summed over the world before Adam's
+direction and the early stop read them, so every rank takes the same
+steps.  The GN supp refinement sums its diagonal system and costs over sp.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..cost import photometric as ph
 from ..geometry import projection
 from ..lie import se3
 from ..ops.sampling import bilinear_sample_packed, pack_bilinear_taps
+from ..parallel.mesh import reduce_sum, shard_targets
 from ..solve.gn_mapping import segment_onehot
 from ..solve.retraction_adam import ScaleByAdam
 from ..utils.timing import host_flag
@@ -157,15 +165,18 @@ def run_mapping(buffers: WindowBuffers, slots: MapSlots, masks: MapMasks,
     ld = buffers.kp_logdepth.clone()
     aff = buffers.affine_pool().clone()
 
+    mesh = buffers.mesh
     sources = []
     for i in np.nonzero(slots.src_valid)[0]:
         idx = slots.trg_index[i][slots.trg_valid[i]].astype(np.int64)
-        sources.append((int(i), idx, buffers.bundle_at(int(i))))
-    packed = _packed_pool(buffers, [k for _, idx, _ in sources for k in idx])
+        mine = shard_targets(idx, mesh)
+        if len(mine):
+            sources.append((int(i), mine, buffers.bundle_at(int(i)), max(len(idx), 1)))
+    packed = _packed_pool(buffers, [k for _, idx, _, _ in sources for k in idx])
     sources = [
-        (i, torch.as_tensor(idx, device=dev), bundle,
-         buffers.source_samples(i, geo_dims), torch.stack([packed[int(k)] for k in idx]))
-        for i, idx, bundle in sources
+        (i, torch.as_tensor(idx, device=dev), bundle, buffers.source_samples(i, geo_dims),
+         torch.stack([packed[int(k)] for k in idx]), cnt)
+        for i, idx, bundle, cnt in sources
     ]
     xi_mask = torch.as_tensor(masks.xi_mask, device=dev)[:, None]
     ld_mask = torch.as_tensor(masks.ld_mask, device=dev)[:, None]
@@ -181,16 +192,19 @@ def run_mapping(buffers: WindowBuffers, slots: MapSlots, masks: MapMasks,
         aff_p = aff.detach().requires_grad_(True)
         E = poses @ se3.exp(xi)
         total = torch.zeros((), device=dev)
-        for i, idx, bundle, src, trg_packed in sources:
+        for i, idx, bundle, src, trg_packed, cnt in sources:
             rel = se3.inverse(E[idx]) @ E[i]
             res = ph.photometric_cost_batch(
                 bundle, src, trg_packed, buffers.K[i], geo_dims, ld_p[i],
                 buffers.kp_base[i], rel,
                 affine=(aff_p[i], aff_p[idx]) if use_affine else None,
             )
-            total = total + torch.sum(res) / max(len(idx), 1)
-        grads = torch.autograd.grad(total, [xi, ld_p, aff_p], allow_unused=True)
+            total = total + torch.sum(res) / cnt
+        grads = (torch.autograd.grad(total, [xi, ld_p, aff_p], allow_unused=True)
+                 if total.requires_grad else (None,) * 3)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, (xi, ld, aff))]
+        if mesh is not None:
+            *grads, total = reduce_sum((*grads, total.detach()), mesh.world)
         d_xi, d_ld, d_aff = opt.direction(grads)
         with torch.no_grad():
             upd_xi = -lr_pose * d_xi * xi_mask
@@ -264,6 +278,7 @@ def run_supp_refinement_gn(buffers: WindowBuffers, src_slot: int, trg_index: np.
     N = buffers.kp_logdepth.shape[1]
     onehot = segment_onehot(bundle.seg_id, N)
     nv = float(max(bundle.num_valid, 1))
+    group = bundle.group
     cnt = float(max(len(idx), 1))
 
     def residuals(ld, shift):
@@ -280,7 +295,8 @@ def run_supp_refinement_gn(buffers: WindowBuffers, src_slot: int, trg_index: np.
         return (src.pixels[..., :3] - px[..., :3]) * valid[..., None], valid
 
     def cost_of(r):
-        return torch.sum(torch.sum(torch.abs(r), dim=(1, 2)) / (3.0 * nv)) / cnt
+        per_slot = reduce_sum(torch.sum(torch.abs(r), dim=(1, 2)), group)
+        return torch.sum(per_slot / (3.0 * nv)) / cnt
 
     zero = torch.zeros((), device=K.device)
     one = torch.ones((), device=K.device)
@@ -294,8 +310,8 @@ def run_supp_refinement_gn(buffers: WindowBuffers, src_slot: int, trg_index: np.
         w = 1.0 / torch.clamp(torch.abs(r0), min=1e-3)
         w = w * valid[..., None] / (3.0 * nv * cnt)
         # the diagonal system, summed per segment in a fixed order
-        JtJ = onehot @ torch.sum(w * j * j, dim=(0, 2))
-        Jtr = onehot @ torch.sum(w * j * r0, dim=(0, 2))
+        JtJ, Jtr = reduce_sum((onehot @ torch.sum(w * j * j, dim=(0, 2)),
+                               onehot @ torch.sum(w * j * r0, dim=(0, 2))), group)
         ld_new = ld - Jtr / (JtJ * (1.0 + lam) + 1e-12)
         cost_new = cost_of(residuals(ld_new, zero)[0])
         improved = cost_new < cost

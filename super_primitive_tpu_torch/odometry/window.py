@@ -51,6 +51,14 @@ class WindowBuffers:
     supp_affine: torch.Tensor     # (W, S, 2)
     supp_valid: torch.Tensor      # (W, S) bool
 
+    # an unsharded window: no mesh, nothing to reduce over
+    # (``parallel.mesh.ShardedWindow`` splits the bundle points over sp)
+    mesh = None
+
+    @property
+    def group(self):
+        return None
+
     @property
     def capacity(self) -> int:
         return self.images.shape[0]

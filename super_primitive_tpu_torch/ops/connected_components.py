@@ -14,12 +14,18 @@ Algorithm: alternating row and column segmented min-scans (``cummin`` with
 a per-run offset, so a run of foreground pixels takes its minimum in one
 pass) plus one pointer jump per sweep, until nothing changes.  Blob-shaped
 masks converge in two or three sweeps.
+
+``group`` shards the masks over a process group: each rank iterates to
+its own block's fixed point with no collective inside the loop, and the
+labels, linear indices within each mask, gather exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import gather_rows, shard_rows
 
 
 def _seg_min_scan(vals: torch.Tensor, boundary: torch.Tensor, dim: int,
@@ -35,13 +41,14 @@ def _seg_min_scan(vals: torch.Tensor, boundary: torch.Tensor, dim: int,
     return torch.cummin(key, dim=dim).values + run * (big + 1)
 
 
-def label_components(masks: torch.Tensor) -> torch.Tensor:
+def label_components(masks: torch.Tensor, group=None) -> torch.Tensor:
     """Label the 4-connected components of (N, H, W) bool masks.
 
     Returns int32 labels on the masks' device: background -1, else the
     component's minimum linear index (unique within each mask, not
-    renumbered; see :func:`relabel_consecutive_np`)."""
-    masks = masks.to(torch.bool)
+    renumbered; see :func:`relabel_consecutive_np`).  ``group``: the masks
+    shard over it (module docstring)."""
+    masks, part = shard_rows(masks.to(torch.bool), group)
     N, H, W = masks.shape
     big = H * W
     lin = torch.arange(H * W, dtype=torch.int64, device=masks.device).reshape(1, H, W)
@@ -66,7 +73,8 @@ def label_components(masks: torch.Tensor) -> torch.Tensor:
         if bool(torch.equal(new, labels)):
             break
         labels = new
-    return torch.where(masks, labels, torch.full_like(labels, -1)).to(torch.int32)
+    return gather_rows(torch.where(masks, labels, torch.full_like(labels, -1)).to(torch.int32),
+                       part)
 
 
 def relabel_consecutive_np(labels: np.ndarray) -> tuple[np.ndarray, int]:

@@ -15,6 +15,10 @@ The LM loop is a Python loop that reads the stop flag on the host once per
 iteration (``utils.timing.host_flag``) and breaks on it, so its iteration
 counts are those of the JAX package's ``lax.while_loop``; it makes no other
 host read.
+
+On a bundle sharded over sp (``parallel.mesh.shard_bundle``) JtJ, Jtr and
+the costs' sums are reduced over its group before the host reads the
+flag: one ``reduce_sum`` per linearization and one per trial cost.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..geometry import projection
 from ..keyframe import PointBundle
 from ..lie import se3
 from ..ops.sampling import bilinear_sample_packed, pack_bilinear_taps
+from ..parallel.mesh import reduce_sum
 from ..utils.timing import host_flag
 
 N_PAR = 8
@@ -94,9 +99,12 @@ def gn_track(bundle: PointBundle, src: ph.SourceSamples, trg_image: torch.Tensor
         return _residuals(p, R, bundle, src, trg_packed, K, geo_dims, kp_logdepth, kp_base,
                           kf_affine, use_affine)
 
-    def cost_of(r):
-        # the reference objective: L1 mean over channels x region points
-        return torch.sum(torch.abs(r)) / (r.shape[-1] * num_valid)
+    def cost_of(r, total=None):
+        # the reference objective: L1 mean over channels x region points;
+        # ``total``: the sum |r| over the group, when already reduced
+        if total is None:
+            total = reduce_sum(torch.sum(torch.abs(r)), bundle.group)
+        return total / (r.shape[-1] * num_valid)
 
     def linearize(R, affine):
         p0 = torch.cat([zeros6, affine])
@@ -110,7 +118,7 @@ def gn_track(bundle: PointBundle, src: ph.SourceSamples, trg_image: torch.Tensor
         Jw = J * w[..., None]
         JtJ = torch.einsum("pci,pcj->ij", Jw, J)
         Jtr = torch.einsum("pci,pc->i", Jw, r0)
-        return r0, JtJ, Jtr
+        return r0, *reduce_sum((JtJ, Jtr, torch.sum(torch.abs(r0))), bundle.group)
 
     R, affine = R0, affine0
     cost_init = cost_of(residuals(torch.cat([zeros6, affine0]), R0)[0])
@@ -118,8 +126,8 @@ def gn_track(bundle: PointBundle, src: ph.SourceSamples, trg_image: torch.Tensor
     lam = torch.tensor(1e-3, device=dev)
     it = 0
     while it < max_iters:
-        r0, JtJ, Jtr = linearize(R, affine)
-        cost0 = cost_of(r0)
+        r0, JtJ, Jtr, abs0 = linearize(R, affine)
+        cost0 = cost_of(r0, abs0)
         damped = JtJ + lam * torch.diag(torch.diag(JtJ)) + eps * eye
         step = -torch.linalg.solve_ex(damped, Jtr[:, None])[0][:, 0]
         R_new = se3.renormalize(se3.exp(step[:6]) @ R)

@@ -33,6 +33,11 @@ and reduce by Schur to an M x M solve, M = 8 (W + W*S).
   :func:`assemble`); it reads its stop flag on the host once per iteration
   (``utils.timing.host_flag``) and breaks on it, as the JAX package's
   ``lax.while_loop`` stops.
+- On a window sharded over sp (``parallel.mesh.shard_window``) each rank
+  linearizes its range of every bundle's points, normalised by the global
+  point count, and :func:`assemble` ends in one ``reduce_sum`` of (H, g_t,
+  D, gl, Bs, cost): every rank then holds the same bits, so the LM accept,
+  the damping, the gauge pin and the stop flag agree on every rank.
 
 Not ported: ``tap_dtype`` (bf16 taps were a measured loss on the TPU) and
 ``point_trim`` (the port's bundles are already trimmed to their valid
@@ -58,6 +63,7 @@ from ..ops.sampling import (
     bilinear_sample_grad_packed,
     pack_bilinear_taps,
 )
+from ..parallel.mesh import reduce_sum
 from ..utils.timing import host_flag
 
 _PROJ_EPS = 1e-6  # projection.project's z guard
@@ -230,6 +236,7 @@ class _Source(NamedTuple):
     s: int
     bundle: object            # PointBundle, trimmed to its valid points
     stride: int
+    offset: int               # first kept row: global rows 0, k, 2k, ... are kept
     src_px: torch.Tensor      # (P', C) source samples at the kept points
     vstat: torch.Tensor       # (P',) bool
     onehot: torch.Tensor      # (N, P')
@@ -264,11 +271,12 @@ def prepare_sources(buffers, trg_index: np.ndarray, trg_valid: np.ndarray,
         bundle = buffers.bundle_at(s)
         src = buffers.source_samples(s, geo_dims)
         k = point_stride
+        off = (-bundle.start) % k
         nv = float(max(len(range(0, bundle.num_valid, k)), 1))
         stack = torch.stack([packed[t] for t in tlist])
         out.append(_Source(
-            s=s, bundle=bundle, stride=k, src_px=src.pixels[::k], vstat=src.valid[::k],
-            onehot=segment_onehot(bundle.seg_id[::k], N), nv=nv,
+            s=s, bundle=bundle, stride=k, offset=off, src_px=src.pixels[off::k],
+            vstat=src.valid[off::k], onehot=segment_onehot(bundle.seg_id[off::k], N), nv=nv,
             cnt=float(max(len(slots), 1)), slots=slots,
             tidx=torch.as_tensor(np.asarray(tlist, np.int64), device=dev),
             pool=stack.reshape(-1, stack.shape[-1]),
@@ -352,7 +360,8 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
     :func:`prepare_sources` (built here when None).  Returns (H (M, M), g_t
     (M,), D (W, N), gl (W, N), Bs (W, N, Kc), cost ()): the camera block,
     camera gradient, landmark diagonal, landmark gradient, landmark-camera
-    coupling in per-source block form and the current-state robust cost."""
+    coupling in per-source block form and the current-state robust cost.
+    On a sharded window they are summed over its group."""
     if sources is None:
         sources = prepare_sources(buffers, trg_index, trg_valid, src_valid, geo_dims,
                                   point_stride)
@@ -376,7 +385,7 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
     for src in sources:
         s, bundle, k = src.s, src.bundle, src.stride
         logd = ph.spread_logdepth(bundle, kp_logdepth[s], buffers.kp_base[s])
-        X = projection.unproject(bundle.uv, torch.exp(logd), buffers.K[s])[::k]
+        X = projection.unproject(bundle.uv, torch.exp(logd), buffers.K[s])[src.offset::k]
         Tv = src.tidx.shape[0]
         rel0 = se3.inverse(poses[src.tidx]) @ poses[s]                  # (T, 4, 4)
         p = projection.transform(X, rel0)
@@ -428,7 +437,7 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
             g_t[ix] += g_loc[j]
         cost_slot = torch.sum(torch.abs(r0), dim=(-2, -1)) / (C * src.nv)
         cost = cost + torch.sum(cost_slot) / src.cnt
-    return H, g_t, D, gl, Bs, cost
+    return reduce_sum((H, g_t, D, gl, Bs, cost), buffers.group)
 
 
 def solve_step(H, g_t, D, gl, Bs, lam, ld_w, par_mask, cmap):

@@ -2,7 +2,8 @@
 and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV, PIL,
 matplotlib or the JAX package, and importing the dataset loaders, the depth
 completion, ``evaluate_void``, the odometry loop and its checkpoints,
-``viz/``, ``run_sfm`` and ``convert_traj_to_tum`` loads none of them; and
+``viz/``, ``run_sfm``, ``convert_traj_to_tum`` and the multi-device layer
+``parallel/`` loads none of them; and
 ``chip_smoke.py`` fails without printing a result where there is no card,
 or where the package is not beside it."""
 
@@ -41,6 +42,7 @@ STANDALONE_MODULES = [
     "depth_completion.metrics", "evaluate_void", "eval.dataset_trees",
     "odometry.io", "odometry.odometry", "lie.sim3", "viz", "viz.export", "viz.viewer",
     "viz.live", "viz.serve", "run_sfm", "convert_traj_to_tum", "eval.e2e_synthetic",
+    "parallel.mesh", "parallel.launch", "parallel.dryrun",
 ]
 
 
