@@ -238,13 +238,19 @@ def nnet_from_flax(tree: dict) -> dict:
     return sd
 
 
+def strip_module_prefix(sd: dict) -> dict:
+    """A state dict without the ``module.`` prefix that the published
+    scannet checkpoint puts on every key (the reference saved a
+    DataParallel model)."""
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
 def nnet_state_dict(sd) -> dict:
     """A published scannet state dict as ``nets.nnet.NNET`` loads it: the
     ``module.`` prefix stripped, and without the encoder's bn2 (it feeds
     only the removed classifier) and BatchNorm batch counters."""
     out = {}
-    for k, v in sd.items():
-        k = k[len("module."):] if k.startswith("module.") else k
+    for k, v in strip_module_prefix(sd).items():
         if k.startswith("encoder.original_model.bn2.") or k.endswith("num_batches_tracked"):
             continue
         out[k] = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))

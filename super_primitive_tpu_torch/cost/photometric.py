@@ -1,6 +1,6 @@
 """Dense photometric reprojection cost over the fixed-shape PointBundle.
 
-Port of ``super_primitive_tpu/cost/photometric.py`` (colour mode): the
+Port of ``super_primitive_tpu/cost/photometric.py``: the
 single-target cost of tracking and two-frame SfM, and the batched cost of
 mapping (one source keyframe against stacked targets).  Per point:
 
@@ -33,6 +33,7 @@ import torch
 from ..geometry import projection
 from ..keyframe import PointBundle
 from ..ops.sampling import bilinear_sample, bilinear_sample_packed
+from .normal_modes import split_by_mode, transform_normals
 
 # The reference uses z > 1e-7 in the single-target path and z > 1e-6 in
 # the batched path.
@@ -128,12 +129,16 @@ def photometric_cost(
     kp_base_logdepth: torch.Tensor,
     pose: torch.Tensor,
     affine: tuple[torch.Tensor, torch.Tensor] | None = None,
+    mode: str = "colour",
 ) -> torch.Tensor:
     """Single-target photometric cost, a scalar (mean over channels x region
     points).  ``trg_packed`` is the target image after
     :func:`pack_bilinear_taps` (hoisted out of the optimizer loop by the
     caller); ``pose`` is T_target_from_source (4, 4); ``affine`` is
-    (source, target) brightness parameters or None."""
+    (source, target) brightness parameters or None.  ``mode`` splits
+    images with normal channels appended (``normal_modes``): the residual
+    takes the affine channels only, and is zero for ``"norm_kappa"``, which
+    has none (the reference leaves the cosine term at zero)."""
     logd = spread_logdepth(bundle, kp_logdepth, kp_base_logdepth)
     z = torch.exp(logd)
     pts = projection.unproject(bundle.uv, z, K)
@@ -146,9 +151,15 @@ def photometric_cost(
     if affine is not None:
         trg_pixels = affine_compensate(trg_pixels, affine[0], affine[1])
 
-    # colour mode: the RGB channels only, even when normals are appended
-    src_pixels = src.pixels[..., :3]
-    trg_pixels = trg_pixels[..., :3]
+    if mode == "colour":
+        # the RGB channels only, even when normals are appended
+        src_pixels = src.pixels[..., :3]
+        trg_pixels = trg_pixels[..., :3]
+    else:
+        src_pixels = split_by_mode(transform_normals(src.pixels, pose, mode), mode)[0]
+        if src_pixels is None:
+            return torch.zeros((), dtype=trg_pixels.dtype, device=trg_pixels.device)
+        trg_pixels = split_by_mode(trg_pixels, mode)[0]
     full_mask = (src.valid & trg_valid).to(trg_pixels.dtype)
     C = src_pixels.shape[-1]
     diff = torch.abs((src_pixels - trg_pixels) * full_mask[..., None])

@@ -1,6 +1,6 @@
 """Datasets (port of super_primitive_tpu/data): the synthetic planes
-scenes, and the TUM, Replica and VOID loaders with the port's own PNG
-reader."""
+scenes, and the TUM, Replica and VOID loaders, with the port's own PNG
+reader and its prefetching native loader (TUM)."""
 
 from __future__ import annotations
 

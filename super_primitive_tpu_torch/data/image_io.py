@@ -20,7 +20,8 @@ diagonals before r + c, and each diagonal is one vectorised step
 
 ``write_png`` writes the same colour types; by default it cycles each
 file's rows through all five filters, so every file it writes exercises
-the whole of the unfiltering.
+the whole of the unfiltering.  ``write_jpeg`` writes a baseline gray JPEG,
+so a JPEG decoder can be driven on a machine without PIL or OpenCV.
 """
 
 from __future__ import annotations
@@ -104,6 +105,16 @@ def unfilter(raw: bytes, height: int, rowbytes: int, bpp: int) -> np.ndarray:
     return _unfilter_diagonals(types, filt, bpp)
 
 
+def png_size(path: str) -> tuple[int, int]:
+    """(height, width) from a PNG's IHDR chunk, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    W, H = struct.unpack(">II", head[16:24])
+    return H, W
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG file as stored: (H, W) for gray, else (H, W, C) in the
     file's channel order (RGB, RGBA, gray + alpha); uint8, or native uint16
@@ -148,7 +159,12 @@ def read_rgb(path: str) -> np.ndarray:
     """An 8-bit PNG as (H, W, 3) uint8 RGB, as ``cv2.imread(path)`` followed
     by BGR -> RGB gives it: gray replicated to three channels, alpha
     dropped."""
-    img = read_png(path)
+    return as_rgb(read_png(path), path)
+
+
+def as_rgb(img: np.ndarray, path: str) -> np.ndarray:
+    """A decoded 8-bit image as stored (gray, gray + alpha, RGB or RGBA) ->
+    (H, W, 3) uint8 RGB."""
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: a 16-bit image where an 8-bit colour image is expected")
     if img.ndim == 2:
@@ -189,3 +205,87 @@ def write_png(path, img: np.ndarray, filters=(0, 1, 2, 3, 4)):
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+_ZIGZAG = np.array(sorted(((r, c) for r in range(8) for c in range(8)),
+                          key=lambda rc: (rc[0] + rc[1],
+                                          rc[1] if (rc[0] + rc[1]) % 2 == 0 else rc[0])))
+_DCT = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16)
+                  for x in range(8)] for u in range(8)])
+
+
+def _jpeg_segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+JPEG_QUANT = 4  # write_jpeg's flat quantisation step
+
+
+def write_jpeg(path, gray: np.ndarray):
+    """Write a uint8 (H, W) image as a baseline (sequential DCT, Huffman)
+    gray JPEG with a flat quantisation table of ``JPEG_QUANT``.
+
+    The Huffman tables give every symbol a code of one fixed length (4 bits
+    for the 12 DC categories, 8 for the 162 AC symbols): a valid prefix code
+    that needs no table from the standard's annex."""
+    gray = np.asarray(gray)
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise ValueError("write_jpeg takes a uint8 (H, W) image")
+    H, W = gray.shape
+    img = np.pad(gray.astype(np.float64) - 128, ((0, -H % 8), (0, -W % 8)), mode="edge")
+    blocks = img.reshape(img.shape[0] // 8, 8, img.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+    coef = np.rint(_DCT @ blocks.reshape(-1, 8, 8) @ _DCT.T / JPEG_QUANT).astype(np.int64)
+    zz = coef[:, _ZIGZAG[:, 0], _ZIGZAG[:, 1]]
+    ac_symbols = [0x00, 0xF0] + [(run << 4) | size for run in range(16) for size in range(1, 11)]
+    ac_code = {s: i for i, s in enumerate(ac_symbols)}
+    bits: list[str] = []
+
+    def put(value: int, size: int):
+        """A category's extra bits (negative values as value - 1)."""
+        if size:
+            bits.append(format(value if value > 0 else value + (1 << size) - 1, f"0{size}b"))
+
+    prev = 0
+    for block in zz:
+        diff = int(block[0]) - prev
+        prev = int(block[0])
+        size = abs(diff).bit_length()
+        bits.append(format(size, "04b"))
+        put(diff, size)
+        run = 0
+        nonzero = np.nonzero(block[1:])[0]
+        last = nonzero[-1] + 1 if nonzero.size else 0
+        for k in range(1, last + 1):
+            v = int(block[k])
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                bits.append(format(ac_code[0xF0], "08b"))
+                run -= 16
+            size = abs(v).bit_length()
+            bits.append(format(ac_code[(run << 4) | size], "08b"))
+            put(v, size)
+            run = 0
+        if last < 63:
+            bits.append(format(ac_code[0x00], "08b"))
+    stream = "".join(bits)
+    stream += "1" * (-len(stream) % 8)
+    scan = bytes(int(stream[i:i + 8], 2) for i in range(0, len(stream), 8))
+    scan = scan.replace(b"\xff", b"\xff\x00")
+
+    def dht(cls: int, length: int, symbols) -> bytes:
+        counts = [0] * 16
+        counts[length - 1] = len(symbols)
+        return bytes([cls << 4]) + bytes(counts) + bytes(symbols)
+
+    out = (b"\xff\xd8"
+           + _jpeg_segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+           + _jpeg_segment(0xFFDB, bytes([0]) + bytes([JPEG_QUANT] * 64))
+           + _jpeg_segment(0xFFC0, struct.pack(">BHHB", 8, H, W, 1) + bytes([1, 0x11, 0]))
+           + _jpeg_segment(0xFFC4, dht(0, 4, range(12)))
+           + _jpeg_segment(0xFFC4, dht(1, 8, ac_symbols))
+           + _jpeg_segment(0xFFDA, bytes([1, 1, 0x00, 0, 63, 0]))
+           + scan + b"\xff\xd9")
+    with open(path, "wb") as f:
+        f.write(out)

@@ -5,8 +5,11 @@ each RGB frame with its depth frame; depth is divided by 5000 and clipped
 at 10 m; the pose is the ground-truth line nearest in time.  Frames come
 out as dicts: ``image`` (H, W, 3) RGB uint8, ``depth`` float32 metres,
 ``T`` (4, 4) world-from-camera (None without a trajectory file),
-``intrinsics`` (3, 3) and ``timestamp``.  PNGs are decoded by
-``image_io`` (the JAX package uses OpenCV or its native loader).
+``intrinsics`` (3, 3) and ``timestamp``.  By default the images are
+decoded by the prefetching native loader (``native_loader``: C++ threads,
+and for ``tum_undistort`` the undistort on those threads too), as the JAX
+package's loaders do; ``native=False`` decodes with the numpy reader
+``image_io`` on the caller's thread instead.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Optional
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from .image_io import read_png, read_rgb
+from .image_io import png_size, read_png, read_rgb
 from .transforms import scale_and_filter_depth
 from .undistort import remap_bilinear, undistort_maps
 
@@ -51,9 +54,11 @@ def pose_at_timestamp(t_poses: np.ndarray, timestamp: float) -> np.ndarray:
 
 class TUMDataset:
     """Plain TUM loader.  ``intrinsics`` (fx, fy, cx, cy) overrides the
-    default K."""
+    default K; ``native`` picks the native loader (the default) or
+    ``image_io``."""
 
-    def __init__(self, root_dir: str, traj_file: Optional[str] = None, intrinsics=None):
+    def __init__(self, root_dir: str, traj_file: Optional[str] = None, intrinsics=None,
+                 native: bool = True):
         self.root_dir = root_dir
         self.t_poses = load_groundtruth(traj_file) if traj_file else None
         if intrinsics is not None:
@@ -66,12 +71,22 @@ class TUMDataset:
         self.timestamps = np.array([float(r[0]) for r in rows])
         self.rgb_files = [r[1] for r in rows]
         self.depth_files = [r[3] for r in rows]
+        self._rgb_loader = self._depth_loader = None
+        if native:
+            from .native_loader import NativeImageLoader
+
+            self._rgb_loader = NativeImageLoader(
+                [os.path.join(root_dir, f) for f in self.rgb_files])
+            self._depth_loader = NativeImageLoader(
+                [os.path.join(root_dir, f) for f in self.depth_files])
 
     def __len__(self):
         return len(self.rgb_files)
 
     def _read_pair(self, idx):
         """(image RGB uint8, raw 16-bit depth)."""
+        if self._rgb_loader is not None:
+            return self._rgb_loader.rgb(idx), self._depth_loader[idx]
         image = read_rgb(os.path.join(self.root_dir, self.rgb_files[idx]))
         depth = read_png(os.path.join(self.root_dir, self.depth_files[idx]))
         return image, depth
@@ -94,22 +109,31 @@ class TUMDataset:
 class TUMUndistortDataset(TUMDataset):
     """fr1 variant: the image undistorted with the fr1 coefficients, image
     and depth cropped by 32 / 16 pixels, the principal point shifted by the
-    crop."""
+    crop.  With the native loader the undistort runs on its decode threads
+    for images of the first image's size (read from its PNG header)."""
 
-    def __init__(self, root_dir: str, traj_file: Optional[str] = None):
-        super().__init__(root_dir, traj_file)
+    def __init__(self, root_dir: str, traj_file: Optional[str] = None, native: bool = True):
+        super().__init__(root_dir, traj_file, native=native)
         self.intrinsics_full = K_FR1.copy()
         self.intrinsics = K_FR1.copy()
         self.intrinsics[0, 2] -= CROP_W
         self.intrinsics[1, 2] -= CROP_H
         self._maps: dict[tuple[int, int], tuple] = {}
+        self._native_hw = None
+        if self._rgb_loader is not None and len(self):
+            self._native_hw = png_size(os.path.join(root_dir, self.rgb_files[0]))
+            self._rgb_loader.set_undistort(*self._maps_for(self._native_hw))
+
+    def _maps_for(self, hw):
+        if hw not in self._maps:
+            self._maps[hw] = undistort_maps(self.intrinsics_full, DIST_FR1, *hw)
+        return self._maps[hw]
 
     def __getitem__(self, idx):
         image, depth = self._read_pair(idx)
         hw = image.shape[:2]
-        if hw not in self._maps:
-            self._maps[hw] = undistort_maps(self.intrinsics_full, DIST_FR1, *hw)
-        image = remap_bilinear(image, *self._maps[hw])
+        if hw != self._native_hw:
+            image = remap_bilinear(image, *self._maps_for(hw))
         image = image[CROP_H:-CROP_H, CROP_W:-CROP_W, :]
         depth = depth[CROP_H:-CROP_H, CROP_W:-CROP_W]
         return self._frame(idx, image, depth)

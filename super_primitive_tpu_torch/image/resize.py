@@ -1,13 +1,19 @@
-"""Host image resizes with OpenCV's semantics.
+"""Image resizes with OpenCV's and with ``jax.image.resize``'s semantics.
 
 numpy replacements of the ``cv2.resize`` calls the JAX package makes
 (``cv2.INTER_NEAREST`` and ``cv2.INTER_LINEAR``), so the port needs no
-OpenCV; the tests hold them against OpenCV.
+OpenCV; the tests hold them against OpenCV.  :func:`resize_bilinear` is
+the device resize of the SAM predictor's full-resolution paths, with
+``jax.image.resize(..., "bilinear")``'s semantics; the tests hold it
+against JAX.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 
 def _nearest_index(dst: int, src: int) -> np.ndarray:
@@ -84,3 +90,39 @@ def linear_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     wy = fy[:, None, None]
     hor = x[:, sx] * (1.0 - wx) + x[:, sx1] * wx
     return (hor[sy] * (1.0 - wy) + hor[sy1] * wy).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _triangle_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s bilinear
+    kernel along one axis (``jax._src.image.scale.compute_weight_mat``, no
+    translation, antialias on): a triangle over half-pixel centres,
+    widened by 1 / scale when downsampling, each output's weights
+    renormalised over the in-bounds taps.  Computed once per shape and
+    device."""
+    scale = n_out / n_in
+    inv_scale = np.float32(1.0 / scale)
+    kernel_scale = np.float32(max(1.0 / scale, 1.0))
+    sample_f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0), np.float32(1) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1)), np.float32(0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    w = np.where(inside[None, :], w, np.float32(0)).astype(np.float32)
+    return torch.from_numpy(w).to(device)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """(..., H, W) float32 -> (..., h, w) on ``x``'s device, as
+    ``jax.image.resize(x, (..., h, w), "bilinear")`` resizes: separable
+    weights (:func:`_triangle_weights`) contracted in float32, rows then
+    columns; an axis whose size does not change is left as it is."""
+    H, W = x.shape[-2:]
+    h, w = out_hw
+    if H != h:
+        x = torch.matmul(_triangle_weights(H, h, x.device).T, x)
+    if W != w:
+        x = torch.matmul(x, _triangle_weights(W, w, x.device))
+    return x

@@ -40,9 +40,13 @@ output in the unsharded order, so NMS after the gather sees the same keep
 order.  A predictor built with ``encoder=False`` decodes against features
 encoded elsewhere (:meth:`SamPredictor.set_features`).
 
-Not ported: ``predict_batched_points``, ``postprocess_masks`` and
-statistics at ``out_size != S``, which need ``jax.image.resize`` semantics
-and which no frontend path takes.
+At ``out_size != S`` the statistics and the selection threshold logits
+resized to the out_size grid by ``image/resize.resize_bilinear``
+(``jax.image.resize`` semantics); K3 still counts on the low-res logits.
+:meth:`SamPredictor.predict_batched_points` returns full-resolution logits
+(:meth:`SamPredictor.postprocess_masks`: up to the model's square input,
+the padding cropped, down to the original image), in chunks of 64 prompts
+padded to the chunk, as the JAX package decodes them.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...image.resize import linear_resize
+from ...image.resize import linear_resize, resize_bilinear
 from ...ops import phase_counts as k3
 from ...parallel.mesh import gather_rows, shard_rows
 from .image_encoder import VIT_H, ImageEncoderViT, ViTConfig
@@ -65,6 +69,7 @@ PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 MASK_THRESHOLD = 0.0
 STATS_CHUNK = 128  # prompts a decode on the statistics path
+BATCHED_CHUNK = 64  # prompts a decode in predict_batched_points
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
@@ -115,16 +120,14 @@ def _first_last(a: torch.Tensor):
 
 def stats_from_lowres(lowres, iou, input_hw, out_size: int, target_length: int):
     """Mask statistics from (B, M, S, S) low-res logits: the bit-packed
-    binary masks on the out_size grid (padding zeroed), the IoU predictions,
-    and K3's full-resolution stability and area, each (B, M)."""
+    binary masks on the out_size grid (padding zeroed; the logits resized
+    to it first when out_size != S), the IoU predictions, and K3's
+    full-resolution stability and area, each (B, M)."""
     B, M, S = lowres.shape[0], lowres.shape[1], lowres.shape[-1]
-    if out_size != S:
-        raise NotImplementedError(
-            "mask statistics at out_size != S need a bilinear resize that is not "
-            "ported yet (ROADMAP.md, queue 1, item 7)")
     x = lowres.reshape(B * M, S, S)
     stability, areas = phase_upsample_counts(x, target_length // S, input_hw)
-    masks_bin = (x > MASK_THRESHOLD) & _region(out_size, input_hw, target_length, x.device)
+    xb = x if out_size == S else resize_bilinear(x, (out_size, out_size))
+    masks_bin = (xb > MASK_THRESHOLD) & _region(out_size, input_hw, target_length, x.device)
     packed = _packbits_lastaxis(masks_bin)
     return (packed.reshape(B, M, out_size, out_size // 8), iou,
             stability.reshape(B, M), areas.reshape(B, M))
@@ -135,14 +138,10 @@ def select_from_lowres(lowres, iou, input_hw, out_size: int, iou_thr: float,
     """amg smallest-good selection from (B, M, S, S) low-res logits on their
     device: per-candidate IoU and stability filter (K3 statistics), a
     keypoint is valid iff it has a good candidate, the smallest good mask by
-    full-resolution area is picked.  Returns (packed picked masks (B, S,
-    S/8) uint8, picked IoU (B,), valid (B,) bool, xyxy boxes (B, 4) float32
+    full-resolution area is picked.  Returns (packed picked masks (B,
+    out_size, out_size/8) uint8, picked IoU (B,), valid (B,) bool, xyxy boxes (B, 4) float32
     on the out_size grid (zeros for empty masks), pick (B,))."""
     B, M, S = lowres.shape[0], lowres.shape[1], lowres.shape[-1]
-    if out_size != S:
-        raise NotImplementedError(
-            "selection at out_size != S needs a bilinear resize that is not "
-            "ported yet (ROADMAP.md, queue 1, item 7)")
     stability, areas = phase_upsample_counts(
         lowres.reshape(B * M, S, S), target_length // S, input_hw)
     stability = stability.reshape(B, M)
@@ -160,6 +159,8 @@ def select_from_lowres(lowres, iou, input_hw, out_size: int, iou_thr: float,
     picked = lowres[ar, pick]
     iou_pick = iou[ar, pick]
 
+    if out_size != S:
+        picked = resize_bilinear(picked, (out_size, out_size))
     masks_bin = (picked > MASK_THRESHOLD) & _region(out_size, input_hw, target_length,
                                                     picked.device)
     packed = _packbits_lastaxis(masks_bin)
@@ -439,6 +440,7 @@ class SamPredictor(PromptRounds):
         self._std = torch.tensor(PIXEL_STD, device=self.device)
         self._features = None
         self._input_hw = None
+        self._orig_hw = None
         self._last_image = None
         self._preload = None
 
@@ -481,11 +483,15 @@ class SamPredictor(PromptRounds):
             x = x.to(self.compute_dtype)
         return gather_rows(self.model.image_encoder(x).float(), part)
 
-    def set_features(self, features: torch.Tensor, input_hw: tuple[int, int]):
+    def set_features(self, features: torch.Tensor, input_hw: tuple[int, int],
+                     orig_hw: tuple[int, int] | None = None):
         """Decode the following prompts against (1, S, S, C) ``features`` of
-        an image whose resized frame is ``input_hw``."""
+        an image whose resized frame is ``input_hw``; ``orig_hw``, the
+        image's own size, is what :meth:`predict_batched_points` resizes
+        to."""
         self._features = features.to(self.device, torch.float32)
         self._input_hw = tuple(input_hw)
+        self._orig_hw = None if orig_hw is None else tuple(orig_hw)
         self._last_image = None
 
     def set_image(self, image_hwc_uint8: np.ndarray):
@@ -502,6 +508,7 @@ class SamPredictor(PromptRounds):
         self._features = self.encode(dev)
         self._last_image = image_hwc_uint8
         self._input_hw = hw
+        self._orig_hw = tuple(image_hwc_uint8.shape[:2])
 
     # ------------------------------------------------------------- decode
     def _decode(self, pts: torch.Tensor):
@@ -509,6 +516,39 @@ class SamPredictor(PromptRounds):
             raise RuntimeError("call set_image first")
         return decode_prompts(self.model.prompt_encoder, self.model.mask_decoder,
                               self._features, self._image_pe, pts, self.compute_dtype)
+
+    def predict_batched_points(self, points_input_frame: np.ndarray,
+                               chunk: int = BATCHED_CHUNK):
+        """Single positive point prompts (B, 2) (x, y) in the resized input
+        frame -> (logits (B, 3, H, W) float32 at the original image's size,
+        IoU (B, 3)) on the host; mask 0 of the multimask output dropped.
+        The prompts run ``chunk`` at a time, each chunk padded to ``chunk``
+        with (0, 0) prompts, so no more than chunk x 3 full-resolution
+        logits are on the device at once."""
+        if self._features is None or self._orig_hw is None:
+            raise RuntimeError("call set_image first")
+        pts_all = np.asarray(points_input_frame, np.float32).reshape(-1, 2)
+        masks, ious = [], []
+        for lo in range(0, pts_all.shape[0], chunk):
+            part = pts_all[lo:lo + chunk]
+            n = part.shape[0]
+            part = np.concatenate([part, np.zeros((chunk - n, 2), np.float32)])
+            lowres, iou = self._decode(self._points(part))
+            masks.append(self.postprocess_masks(lowres[:n, 1:]).cpu().numpy())
+            ious.append(iou[:n, 1:].cpu().numpy())
+        return np.concatenate(masks), np.concatenate(ious)
+
+    def postprocess_masks(self, lowres_masks: torch.Tensor) -> torch.Tensor:
+        """(B, M, S, S) low-res logits -> (B, M, H, W) at the original image's
+        size: bilinear up to the model's square input, the padding cropped,
+        bilinear to (H, W) (``jax.image.resize`` semantics, the JAX
+        predictor's ``postprocess_masks``)."""
+        B, M, S = lowres_masks.shape[0], lowres_masks.shape[1], lowres_masks.shape[-1]
+        T = self.target_length
+        x = resize_bilinear(lowres_masks.reshape(B * M, S, S), (T, T))
+        h2, w2 = self._input_hw
+        x = resize_bilinear(x[:, :h2, :w2], self._orig_hw)
+        return x.reshape(B, M, *self._orig_hw)
 
     def _decode_stats(self, pts, input_hw, out_size):
         lowres, iou = self._decode(pts)

@@ -342,7 +342,8 @@ def run_odometry(config, frontend, dataset, max_frames=None, device="cuda",
     return {"odom": odom, "ate": ate}
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """Run the CLI; returns ``run_odometry``'s or ``run_two_frame``'s result."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", required=True)
     ap.add_argument("--device", default="cuda")
@@ -368,9 +369,8 @@ def main(argv=None):
     if args.odom:
         dataset = load_dataset(config, n_frames=args.max_frames or 20)
         frontend = build_frontend(args, config, device, device_sam=True)
-        run_odometry(config, frontend, dataset, args.max_frames, device,
-                     live_dir=args.live_viz)
-        return
+        return run_odometry(config, frontend, dataset, args.max_frames, device,
+                            live_dir=args.live_viz)
     dataset = load_dataset(config)
     frontend = build_frontend(args, config, device)
     r = run_two_frame(config, frontend, dataset, device, live_dir=args.live_viz,
@@ -380,6 +380,7 @@ def main(argv=None):
           f"{r['pose_err_init']:.4f} -> {r['pose_err_final']:.4f}, "
           f"frontend {r['frontend_s']:.2f} s, solve {r['solve_s']:.2f} s")
     print(f"artifacts in {config.save_path}")
+    return r
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no module of ``super_primitive_tpu_torch``
 and nothing in ``chip_smoke.py`` imports JAX, Flax, optax, OpenCV, PIL,
-matplotlib or the JAX package, and importing the dataset loaders, the depth
-completion, ``evaluate_void``, the odometry loop and its checkpoints,
-``viz/``, ``run_sfm``, ``convert_traj_to_tum`` and the multi-device layer
-``parallel/`` loads none of them; and
+matplotlib, transformers or the JAX package, and importing the dataset
+loaders (the native one too), the depth completion, ``evaluate_void``, the
+odometry loop and its checkpoints, ``viz/``, ``run_sfm``,
+``convert_traj_to_tum``, the multi-device layer ``parallel/``, the normal
+modes, the SAM predictor, the checkpoint converter and its validation and
+oracle modules and the day-0 rehearsal loads none of them; and
 ``chip_smoke.py`` fails without printing a result where there is no card,
 or where the package is not beside it."""
 
@@ -19,7 +21,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|PIL|matplotlib"
+    r"^\s*(?:import|from)\s+(?:jax|flax|optax|cv2|PIL|matplotlib|transformers"
     r"|super_primitive_tpu(?!_torch))\b",
     re.MULTILINE,
 )
@@ -43,6 +45,9 @@ STANDALONE_MODULES = [
     "odometry.io", "odometry.odometry", "lie.sim3", "viz", "viz.export", "viz.viewer",
     "viz.live", "viz.serve", "run_sfm", "convert_traj_to_tum", "eval.e2e_synthetic",
     "parallel.mesh", "parallel.launch", "parallel.dryrun",
+    "data.native_loader", "cost.normal_modes", "cost.photometric", "image.resize",
+    "nets.sam.predictor", "nets.hf_oracle", "nets.validate", "convert_checkpoints",
+    "day0_rehearsal",
 ]
 
 
@@ -52,7 +57,8 @@ def test_module_loads_nothing_forbidden(module):
     package, not even through another module."""
     code = (f"import sys, super_primitive_tpu_torch.{module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'cv2', 'PIL', 'matplotlib', 'super_primitive_tpu')); "
+            "('jax', 'flax', 'optax', 'cv2', 'PIL', 'matplotlib', 'transformers', "
+            "'super_primitive_tpu')); "
             "print(bad)")
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=120)
@@ -64,8 +70,9 @@ def test_kernel_sources_are_packaged():
     csrc = REPO / "super_primitive_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {"bini_apply.cu", "bini_cg.cu", "bini_stencil.cuh",
                                                 "phase_counts.cu"}
+    assert (REPO / "super_primitive_tpu_torch" / "data" / "csrc" / "loader.cpp").is_file()
     text = (REPO / "pyproject.toml").read_text()
-    assert '"csrc/*.cu"' in text and '"csrc/*.cuh"' in text
+    assert '"csrc/*.cu"' in text and '"csrc/*.cuh"' in text and '"csrc/*.cpp"' in text
 
 
 def run_smoke(cwd):

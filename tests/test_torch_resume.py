@@ -42,7 +42,7 @@ from super_primitive_tpu.keyframe import build_bundle_np as j_bundle
 from super_primitive_tpu.lie import se3 as jse3
 from super_primitive_tpu.odometry import io as jio
 from super_primitive_tpu.odometry import window as jwin
-from super_primitive_tpu.odometry.odometry import Odometry as JOdometry
+from super_primitive_tpu.odometry.odometry import Odometry as _JOdometry
 from super_primitive_tpu_torch.config import load_config as tload_config
 from super_primitive_tpu_torch.frontend.stub import GridSegmentFrontend as TGrid
 from super_primitive_tpu_torch.odometry import io as tio
@@ -54,6 +54,24 @@ WINDOW_FIELDS = ("images", "K", "poses", "kp_logdepth", "affine", "kf_valid", "u
                  "base_logdepth", "point_valid", "num_valid", "kp_base", "supp_valid")
 KF_FIELDS = ("image", "K", "regions", "logdepth_perseg", "keypoints_rc", "pose",
              "kp_logdepth", "affine")
+
+
+class JOdometry(_JOdometry):
+    """The JAX package's Odometry with its latest-slot cache tied to the live buffers.
+
+    ``Odometry._last_bundle`` keys its cache on ``id(self.buffers)``. Once
+    an old buffers tree is freed, a new tree can get the same id, and the
+    tracker then reads a stale slot (the previous kp_logdepth, bundle and
+    K). Whether an id is reused depends on the process's allocations, so
+    the JAX first leg's checkpoint, and both resumed tracks, changed from
+    run to run. Holding the tree the cache was made from rules out the
+    reuse, so both JAX legs are deterministic."""
+
+    def _last_bundle(self):
+        if getattr(self, "_slot_cache_of", None) is not self.buffers:
+            self._slot_cache_of = self.buffers
+            self._slot_cache_key = None
+        return super()._last_bundle()
 
 
 @pytest.fixture(autouse=True, scope="module")

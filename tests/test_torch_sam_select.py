@@ -4,7 +4,7 @@ Everything here is exact (integer counts, bit-packed masks, boxes on the
 integer grid, NMS decisions), so the comparisons are equality:
 
 - ``select_from_lowres`` and ``stats_from_lowres`` on the JAX package's own
-  fake low-res logits (S = 64, s = 4);
+  fake low-res logits (S = 64, s = 4), the selection at out_size = 2S too;
 - ``_select_nms_device``: kept set and coverage, both scoring modes;
 - ``DeviceFakeSAM.predict_points_select`` at 96x128 with ``n_cells=24``:
   masks, iou_preds, keypoints_ids, boxes and masks_ids;
@@ -76,9 +76,15 @@ def test_stats_from_lowres(lowres):
 
 
 def test_out_size_other_than_lowres_not_ported(lowres):
+    """The selection at out_size = 2S, once refused, now resizes the picked
+    logits as JAX does; the 2x upsample is exact, so everything is equal."""
     tl, ti = lowres
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.select_from_lowres(tl, ti, INPUT_HW, 2 * S, 0.0, 0.9, TL)
+    got = tp.select_from_lowres(tl, ti, INPUT_HW, 2 * S, 0.0, 0.9, TL)
+    want = jp.select_from_lowres(jnp.asarray(tl.numpy()), jnp.asarray(ti.numpy()),
+                                 jnp.asarray(INPUT_HW), 2 * S, jnp.float32(0.0),
+                                 jnp.float32(0.9), TL)
+    for name, g, w in zip(("packed", "iou", "valid", "boxes", "pick"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
 @pytest.mark.parametrize("by_size", [True, False])
