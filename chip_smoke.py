@@ -135,11 +135,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``predict_batched_points`` on 64 prompts with phase 8's float32
      decoder, card against CPU within ``NET_CARD_TOL["decoder"]``; (d)
      ``photometric_cost`` in each normal mode, card against CPU within
-     ``MODE_TOL`` relative.
+     ``MODE_TOL`` relative; (e) the full-size day-0 leg
+     (``day0_rehearsal.full_size_leg``) in a process of its own, whose
+     host RSS holds only the leg: a ViT-H-sized synthetic
+     ``sam_vit_h_4b8939.pth`` (2.56 GB, published names) ->
+     ``convert_checkpoints --validate`` at the default ``vit_h`` on the card
+     -> step 2 on the converted tree, K3 launched on it and exact against
+     its plain version; the ``.npz`` equal, bit for bit, to
+     ``convert.sam_to_flax`` of the same synthetic state dict (the tree
+     phases 8 and 9 run); the files' bytes, the write, convert and validate
+     s, peak host RSS and device memory, and the float32 ViT-H forward on
+     the converted tree, warm.
 
 Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b,
-8, 9, 10 (at its restore), 11b (in each rank) and 12a-c and read just
-after; a kernel of a path that was not launched there fails the run.
+8, 9, 10 (at its restore), 11b (in each rank), 12a-c and 12e (in its
+process) and read just after; a kernel of a path that was not launched
+there fails the run.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it (phase 9 keeps K2's largest and longest-running calls whole), and
 after the path each kernel is checked and timed on them.
@@ -2480,7 +2491,7 @@ def run_day0(torch, stencil, k3, work: Path, card: str) -> tuple[dict, dict]:
     if not ate < day0_rehearsal.ATE_LIMIT:
         fail(f"the day-0 rehearsal's ATE {ate} is not below {day0_rehearsal.ATE_LIMIT}")
     out = {"wall_s": wall, "ate": ate, "keyframes": r["ate"]["n"],
-           "validation_tiers": {k: v["tier"] for k, v in r["validation"].items()},
+           "validation_tiers": {k: r["validation"][k]["tier"] for k in ("sam", "nnet")},
            "launches": launches}
     print(f"day-0 rehearsal on {card}: {wall:.1f} s, ATE {ate:.5f} over {r['ate']['n']} "
           f"keyframes, validation tiers {out['validation_tiers']}, launches {launches}",
@@ -2633,10 +2644,109 @@ def check_normal_modes(torch, card: str) -> dict:
     return out
 
 
+def tree_mismatch(got, want, path: str = "") -> list[str]:
+    """The leaves of two parameter trees that differ in their keys, dtype,
+    shape or any bit."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path or "/"]
+        return [p for k in want for p in tree_mismatch(got[k], want[k], f"{path}/{k}")]
+    got, want = np.asarray(got), np.asarray(want)
+    same = (got.dtype == want.dtype and got.shape == want.shape
+            and got.tobytes() == want.tobytes())
+    return [] if same else [path]
+
+
+def day0_full_rank(mesh, work: str) -> dict:
+    """Phase 12e's process (one rank of ``parallel/launch.run``: a fresh
+    process, whose RSS holds only the leg): ``full_size_leg`` at ViT-H on the
+    card with the launch counts reset just before and read just after, and
+    K3's first inputs at each shape kept; then the converted tree against
+    ``sam_to_flax`` of the same synthetic state dict, and the float32 ViT-H
+    forward on it, warm."""
+    import torch
+
+    from super_primitive_tpu_torch import day0_rehearsal
+    from super_primitive_tpu_torch.convert import (
+        load_npz_tree,
+        nnet_to_flax,
+        sam_from_flax,
+        sam_to_flax,
+        save_npz_tree,
+    )
+    from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
+    from super_primitive_tpu_torch.nets.sam.predictor import SamPredictor
+    from super_primitive_tpu_torch.nets.synth import synth_nnet_state_dict, synth_sam_state_dict
+    from super_primitive_tpu_torch.nets.validate import sample_image
+    from super_primitive_tpu_torch.ops import phase_counts as k3
+    from super_primitive_tpu_torch.ops import stencil
+
+    work = Path(work)
+    nnet_npz = work / "nnet_scannet.npz"
+    save_npz_tree(nnet_npz, nnet_to_flax(synth_nnet_state_dict()))
+    with first_inputs(torch, k3, "phase_counts") as k3_inputs:
+        stencil.reset_launch_counts()
+        k3.reset_launch_counts()
+        leg = day0_rehearsal.full_size_leg(work, nnet_npz, "cuda")
+        launches = {**stencil.launch_counts, **k3.launch_counts}
+    t0 = time.perf_counter()
+    got = load_npz_tree(leg["npz"])
+    mismatch = tree_mismatch(got, sam_to_flax(synth_sam_state_dict(VIT_H), depth=VIT_H.depth))
+    compare_s = time.perf_counter() - t0
+    predictor = SamPredictor(sam_from_flax(got), VIT_H, device="cuda")
+    del got
+    img_dev, _ = predictor._upload(sample_image())
+    forward_ms = time_ms(torch, lambda: predictor.encode(img_dev), reps=3)
+    leg.update(pth=str(leg["pth"]), npz=str(leg["npz"]))
+    return {"leg": leg, "launches": launches, "recorded": list(k3_inputs.values()),
+            "mismatch": mismatch, "compare_s": compare_s, "f32_forward_ms": forward_ms}
+
+
+def run_day0_full(torch, k3, work: Path, card: str) -> tuple[dict, list, dict]:
+    """Phase 12e: the full-size day-0 leg in a process of its own
+    (:func:`day0_full_rank`), its files under ``work``, deleted at the end;
+    then K3 against its plain version, timed, on the inputs the leg gave
+    it."""
+    import shutil
+
+    from super_primitive_tpu_torch.parallel import launch
+
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        r = launch.run(day0_full_rank, 1, "gloo", "cuda", args=(str(work),), deadline=600)[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    leg, launches = r["leg"], r["launches"]
+    if r["mismatch"]:
+        fail(f"the full-size .npz differs from sam_to_flax's tree at {r['mismatch'][:8]}")
+    if launches["phase_counts"] == 0:
+        fail(f"the full-size leg did not launch K3: {launches}")
+    k3_rows = [k3_row(torch, k3, *[a.cuda() if torch.is_tensor(a) else a for a in args])
+               for args in r["recorded"]]
+    out = {**{k: v for k, v in leg.items() if k not in ("pth", "npz", "sam_area")},
+           "f32_forward_ms": r["f32_forward_ms"], "compare_s": r["compare_s"],
+           "process_wall_s": wall, "launches": launches,
+           "k3_device_ms": sum(row["device_ms"] for row in k3_rows)}
+    print(f"full-size day-0 leg on {card}: .pth {leg['pth_bytes']:,} B, .npz "
+          f"{leg['npz_bytes']:,} B (bit for bit sam_to_flax's); write {leg['write_s']:.1f} s, "
+          f"convert {leg['convert_s']:.1f} s, validate {leg['validate_s']:.1f} s, step 2 "
+          f"{leg['step2_s']:.1f} s; peak host RSS {leg['peak_rss_bytes'] / 2**30:.2f} GiB "
+          f"({leg['rss_start_bytes'] / 2**30:.2f} at the leg's start), "
+          f"peak device memory {leg['peak_device_bytes'] / 2**30:.2f} GiB; ViT-H float32 "
+          f"forward {r['f32_forward_ms']:.1f} ms; K3 {launches['phase_counts']} launches, "
+          f"device {out['k3_device_ms'] * 1e3:.2f} us; process {wall:.1f} s", flush=True)
+    return launches, k3_rows, out
+
+
 def run_slice10(torch, stencil, k3, pkg_dir: Path, decode: dict, f32_state_dict: dict,
                 card: str):
     """Phase 12: the native loader (a), the day-0 rehearsal (b), the SAM
-    predictor at out_size != S (c) and the normal modes (d)."""
+    predictor at out_size != S (c), the normal modes (d) and the full-size
+    day-0 leg (e)."""
     import shutil
 
     t_phase = time.perf_counter()
@@ -2648,13 +2758,19 @@ def run_slice10(torch, stencil, k3, pkg_dir: Path, decode: dict, f32_state_dict:
     day0_l, day0 = run_day0(torch, stencil, k3, work, card)
     fullres_l, k3_fullres, fullres = run_sam_fullres(torch, k3, decode, f32_state_dict, card)
     modes = check_normal_modes(torch, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full_l, k3_full, full = run_day0_full(torch, k3, work / "day0_full", card)
+    full["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(work, ignore_errors=True)
     launches = {"loader_native": native_l, "loader_image_io": io_l, "day0": day0_l,
-                "sam_fullres": {"bini_apply": 0, "bini_cg": 0, **fullres_l}}
+                "sam_fullres": {"bini_apply": 0, "bini_cg": 0, **fullres_l},
+                "day0_full": full_l}
     summary = {"loader": loader, "day0": day0, "sam_fullres": fullres, "normal_modes": modes,
-               "phase_s": time.perf_counter() - t_phase}
-    print(f"phase 12 on {card}: {summary['phase_s']:.1f} s", flush=True)
-    return launches, k2_loader, k3_loader, k3_fullres, summary
+               "day0_full": full, "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 12 on {card}: {summary['phase_s']:.1f} s (12e {full['phase_s']:.1f} s)",
+          flush=True)
+    return launches, k2_loader, k3_loader, k3_fullres, k3_full, summary
 
 
 def main() -> int:
@@ -2715,7 +2831,7 @@ def main() -> int:
     sharded_launches, k2_sh, k3_sh, sharded = run_sharded(
         torch, stencil, k3, sharded_inputs["gn"], sharded_inputs["bini"], decode_inputs, smi)
     torch.cuda.empty_cache()
-    s10_launches, k2_loader, k3_loader, k3_fullres, slice10 = run_slice10(
+    s10_launches, k2_loader, k3_loader, k3_fullres, k3_day0_full, slice10 = run_slice10(
         torch, stencil, k3, Path(pkg.__file__).resolve().parent, decode_inputs, f32_decoder, smi)
 
     def path_sums(rows):
@@ -2790,7 +2906,8 @@ def main() -> int:
               void_path=path_sums(k3_void), sharded_path_shapes=k3_sh,
               sharded_path=path_sums(k3_sh), loader_path_shapes=k3_loader,
               loader_path=path_sums(k3_loader), sam_fullres_path_shapes=k3_fullres,
-              sam_fullres_path=path_sums(k3_fullres)),
+              sam_fullres_path=path_sums(k3_fullres), day0_full_path_shapes=k3_day0_full,
+              day0_full_path=path_sums(k3_day0_full)),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))

@@ -24,6 +24,9 @@ weights).
 
 from __future__ import annotations
 
+import os
+import pickle
+import zipfile
 from typing import Mapping, Optional
 
 import numpy as np
@@ -260,8 +263,24 @@ def nnet_state_dict(sd) -> dict:
 def save_npz_tree(path, tree: dict):
     """Write ``tree`` under ``"tree"`` in an ``.npz``, the layout
     ``convert_checkpoints.py`` writes (it compresses; float weights hardly
-    compress, so this does not), which ``load_npz_tree`` reads."""
-    np.savez(path, tree=np.asarray(tree, dtype=object))
+    compress, so this does not), which ``load_npz_tree`` reads.
+
+    The entry is the one ``np.savez`` writes, a 0-d object array pickled
+    with protocol 4, but the pickler keeps no memo: ``np.savez``'s holds a
+    copy of every leaf's bytes until the dump ends, which doubles the
+    process's memory for a ViT-H tree.  Here each leaf's bytes are freed
+    once written.  The tree holds no object twice."""
+    path = os.fspath(path)
+    if not path.endswith(".npz"):
+        path += ".npz"  # as np.savez names it
+    arr = np.empty((), dtype=object)
+    arr[()] = tree
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True) as zf, \
+            zf.open("tree.npy", "w", force_zip64=True) as fid:
+        np.lib.format.write_array_header_1_0(fid, np.lib.format.header_data_from_array_1_0(arr))
+        pickler = pickle.Pickler(fid, protocol=4)
+        pickler.fast = True
+        pickler.dump(arr)
 
 
 def _np(x) -> np.ndarray:

@@ -19,11 +19,17 @@ diff against segment-anything / geffnet where those are installed) on
 ``--device`` (the card by default).  ``--image`` is a PNG or JPEG file
 (decoded by the native loader); the default is a synthetic image.
 ``--sam-cfg tiny`` converts the tiny test encoder of the day-0 rehearsal.
+The returned dict holds each validation's metrics under ``"sam"`` /
+``"nnet"`` and the wall seconds of each step under ``"seconds"``
+(``sam_convert``: read, convert and write; ``sam_validate``; likewise for
+the NNET).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
+import zipfile
 
 import numpy as np
 import torch
@@ -36,8 +42,13 @@ SAM_CONFIGS = {"vit_h": VIT_H, "tiny": VIT_TINY_TEST}
 
 def load_torch_state_dict(path) -> dict:
     """{name: numpy array} of a ``.pth`` state dict, unwrapped from a
-    ``"model"`` entry.  Only tensors and plain containers are unpickled."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ``"model"`` entry.  Only tensors and plain containers are unpickled.
+
+    A zip-format file (``torch.save``'s since PyTorch 1.6) is memory-mapped:
+    its tensors are pages of the file, read when the converter touches them
+    and dropped by the kernel under memory pressure, not a copy in the
+    process's own memory (2.56 GB for ViT-H)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=zipfile.is_zipfile(path))
     if isinstance(ckpt, dict) and "model" in ckpt:
         ckpt = ckpt["model"]
     return {k: v.numpy() if torch.is_tensor(v) else np.asarray(v) for k, v in ckpt.items()}
@@ -72,25 +83,35 @@ def main(argv=None) -> dict:
 
         device = require_device(args.device)
     image = read_image(args.image) if args.image else None
-    results = {}
+    results = {"seconds": {}}
+    seconds = results["seconds"]
     if args.sam:
+        t0 = time.perf_counter()
         tree = sam_to_flax(load_torch_state_dict(args.sam),
                            depth=SAM_CONFIGS[args.sam_cfg].depth)
         save_npz_tree(args.out_sam, tree)
-        print(f"SAM -> {args.out_sam}")
+        seconds["sam_convert"] = time.perf_counter() - t0
+        print(f"SAM -> {args.out_sam} ({seconds['sam_convert']:.1f} s)")
         if args.validate:
             from .nets.validate import validate_sam
 
+            t0 = time.perf_counter()
             results["sam"] = validate_sam(tree, ckpt_path=args.sam, image=image, device=device)
+            seconds["sam_validate"] = time.perf_counter() - t0
+        del tree
     if args.nnet:
+        t0 = time.perf_counter()
         tree = nnet_to_flax(strip_module_prefix(load_torch_state_dict(args.nnet)))
         save_npz_tree(args.out_nnet, tree)
-        print(f"NNET -> {args.out_nnet}")
+        seconds["nnet_convert"] = time.perf_counter() - t0
+        print(f"NNET -> {args.out_nnet} ({seconds['nnet_convert']:.1f} s)")
         if args.validate:
             from .nets.validate import validate_nnet
 
+            t0 = time.perf_counter()
             results["nnet"] = validate_nnet(tree, ckpt_path=args.nnet, image=image,
                                             device=device)
+            seconds["nnet_validate"] = time.perf_counter() - t0
     return results
 
 

@@ -3,7 +3,7 @@ sequence to an ATE, end to end, on synthetic files in the published
 formats.
 
     python -m super_primitive_tpu_torch.day0_rehearsal [--dir DIR] [--keep]
-        [--frames N] [--device cuda|cpu]
+        [--frames N] [--device cuda|cpu] [--full-size]
 
 The port's counterpart of the root ``day0_rehearsal.py``.  It writes
 
@@ -23,10 +23,17 @@ and then runs what a user holding the real files runs:
     4. ``run_sfm --odom`` over the TUM tree, read by the native loader, with
        the Sim(3) ATE asserted below 0.05.
 
-Two differences from the real run: the tiny SAM configuration (a ViT-H of
-random numbers adds no coverage of the plumbing), and the grid stub
-frontend in step 4 (random weights cannot segment).  Everything runs on
-``--device``, the card by default.
+Two differences from the real run: the tiny SAM configuration, and the
+grid stub frontend in step 4 (random weights cannot segment).
+``--full-size`` adds the leg the tiny configuration skips (after step 1):
+a ViT-H-sized ``models/sam_vit_h_4b8939_full.pth`` (2.56 GB, the published
+names and shapes) through the exact command a user runs on the published
+file, ``convert_checkpoints --sam ... --validate`` at the default
+``--sam-cfg vit_h``, and then step 2 on the converted ViT-H tree; it
+prints the files' sizes, each step's seconds, the host RSS at its start and
+its peak and, on a card, the peak device memory, and deletes both 2.56 GB files at the end
+unless ``--keep`` is given.  Everything runs on ``--device``, the card by
+default.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import argparse
 import shutil
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,8 +50,10 @@ import torch
 from .convert import load_npz_tree
 from .nets.sam.image_encoder import VIT_TINY_TEST
 from .nets.synth import synth_nnet_state_dict, synth_sam_state_dict
+from .utils.timing import RSSSampler
 
 ATE_LIMIT = 0.05
+FULL_PTH, FULL_NPZ = "sam_vit_h_4b8939_full.pth", "sam_vit_h_full.npz"
 
 
 def build_fixture_tree(root, n_frames: int = 8) -> dict:
@@ -91,6 +101,61 @@ def drive_converted_nets(sam_npz, nnet_npz, device) -> dict:
     return {"sam_area": area, "normals_shape": normals.shape}
 
 
+def full_size_leg(models, nnet_npz, device: str = "cuda", sam_cfg: str = "vit_h") -> dict:
+    """The ``--full-size`` leg under ``models``: a synthetic SAM ``.pth`` of
+    the size of ``convert_checkpoints.SAM_CONFIGS[sam_cfg]`` in the published
+    names, ``convert_checkpoints --sam ... --validate --sam-cfg sam_cfg``,
+    then step 2 on the converted tree with the NNET tree ``nnet_npz``.
+    Returns the files, their bytes, each step's seconds, the embedding's
+    std, the host RSS (``utils.timing.RSSSampler``: at the leg's start, the
+    leg's peak, and the peak so far at the end of each step) and, on a
+    card, the peak device memory since the leg began."""
+    from . import convert_checkpoints
+
+    models = Path(models)
+    models.mkdir(parents=True, exist_ok=True)
+    pth, npz = models / FULL_PTH, models / FULL_NPZ
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rss_by_step = {}
+    with RSSSampler() as rss:
+        t0 = time.perf_counter()
+        cfg = convert_checkpoints.SAM_CONFIGS[sam_cfg]
+        torch.save({k: torch.from_numpy(v) for k, v in synth_sam_state_dict(cfg).items()}, pth)
+        write_s = time.perf_counter() - t0
+        rss_by_step["write"] = rss.peak
+        validation = convert_checkpoints.main(
+            ["--sam", str(pth), "--out-sam", str(npz), "--validate", "--sam-cfg", sam_cfg,
+             "--device", device])
+        rss_by_step["convert_validate"] = rss.peak
+        if not validation["sam"]["finite"]:
+            raise AssertionError(f"the full-size validation found non-finite stages: "
+                                 f"{validation}")
+        t0 = time.perf_counter()
+        nets = drive_converted_nets(npz, nnet_npz, device)
+        step2_s = time.perf_counter() - t0
+    rss_by_step["step2"] = rss.peak
+    out = {"pth": pth, "npz": npz, "pth_bytes": pth.stat().st_size,
+           "npz_bytes": npz.stat().st_size, "write_s": write_s,
+           "convert_s": validation["seconds"]["sam_convert"],
+           "validate_s": validation["seconds"]["sam_validate"], "step2_s": step2_s,
+           "embed_std": validation["sam"]["embed_std"], "sam_area": nets["sam_area"],
+           "rss_start_bytes": rss.start, "peak_rss_bytes": rss.peak,
+           "peak_rss_bytes_by_step": rss_by_step,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None}
+    gib = {k: f"{v / 2**30:.2f}" for k, v in rss_by_step.items()}
+    print(f"full-size leg ({sam_cfg}) on {torch.device(device)}: .pth {out['pth_bytes']:,} B "
+          f"(written in {write_s:.1f} s), .npz {out['npz_bytes']:,} B; convert "
+          f"{out['convert_s']:.1f} s, validate {out['validate_s']:.1f} s, step 2 "
+          f"{step2_s:.1f} s; host RSS {rss.start / 2**30:.2f} GiB at the start, peak "
+          f"{rss.peak / 2**30:.2f} GiB (after the write {gib['write']}, convert and validate "
+          f"{gib['convert_validate']}, step 2 {gib['step2']})"
+          + (f"; peak device memory {out['peak_device_bytes'] / 2**30:.2f} GiB" if on_card
+             else ""), flush=True)
+    return out
+
+
 def odometry_config(fx: dict, out_dir: Path) -> dict:
     """The rehearsal's TUM odometry configuration (the root rehearsal's)."""
     K = fx["K"]
@@ -116,8 +181,9 @@ def odometry_config(fx: dict, out_dir: Path) -> dict:
     }
 
 
-def rehearse(root, n_frames: int = 8, device: str = "cuda") -> dict:
-    """The four steps under ``root``; returns their results."""
+def rehearse(root, n_frames: int = 8, device: str = "cuda", full_size: bool = False) -> dict:
+    """The four steps under ``root`` (and the full-size leg after step 1
+    with ``full_size``); returns their results."""
     import yaml
 
     from . import convert_checkpoints, evaluate_void, run_sfm
@@ -133,6 +199,11 @@ def rehearse(root, n_frames: int = 8, device: str = "cuda") -> dict:
         "--validate", "--sam-cfg", "tiny", "--device", device])
     if not (validation["sam"]["finite"] and validation["nnet"]["finite"]):
         raise AssertionError(f"validation found non-finite stages: {validation}")
+    full = None
+    if full_size:
+        print("1b. the full-size leg: a ViT-H .pth -> convert_checkpoints --validate -> step 2",
+              flush=True)
+        full = full_size_leg(root / "models", nnet_npz, device)
 
     print("2. the converted trees through build_frontend", flush=True)
     nets = drive_converted_nets(sam_npz, nnet_npz, device)
@@ -157,22 +228,29 @@ def rehearse(root, n_frames: int = 8, device: str = "cuda") -> dict:
         raise AssertionError(f"rehearsal ATE {ate} is not below {ATE_LIMIT}")
     print(f"day0_rehearsal OK: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} keyframes "
           f"(root: {root})")
-    return {"validation": validation, "nets": nets, "void": void, "ate": ate}
+    return {"validation": validation, "full_size": full, "nets": nets, "void": void, "ate": ate}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dir", default=None, help="fixture root (default: a temporary one)")
-    ap.add_argument("--keep", action="store_true", help="keep the temporary fixture root")
+    ap.add_argument("--keep", action="store_true",
+                    help="keep the temporary fixture root and the full-size files")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--full-size", action="store_true",
+                    help="also take a ViT-H-sized .pth (2.56 GB) through convert_checkpoints "
+                         "--validate and step 2")
     args = ap.parse_args(argv)
     root = args.dir or tempfile.mkdtemp(prefix="day0_rehearsal_")
     try:
-        return rehearse(root, args.frames, args.device)
+        return rehearse(root, args.frames, args.device, full_size=args.full_size)
     finally:
         if args.dir is None and not args.keep:
             shutil.rmtree(root, ignore_errors=True)
+        elif args.full_size and not args.keep:
+            for name in (FULL_PTH, FULL_NPZ):
+                (Path(root) / "models" / name).unlink(missing_ok=True)
 
 
 if __name__ == "__main__":

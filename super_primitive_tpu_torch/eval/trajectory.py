@@ -1,14 +1,22 @@
 """Trajectory alignment + ATE evaluation (numpy).
 
-Port of ``super_primitive_tpu/eval/trajectory.py`` (``horn_align`` and
-``ate_rmse``): Horn closed-form alignment with scale, the classic TUM
-rgbd-benchmark routine, and the Sim(3) ATE RMSE of the evo_ape protocol,
-self-contained so no external evaluator is needed.
+Port of ``super_primitive_tpu/eval/trajectory.py``: Horn closed-form
+alignment with scale, the classic TUM rgbd-benchmark routine, the scale
+transfer for monocular display (``transfer_scale``), and the Sim(3) ATE
+RMSE of the evo_ape protocol, self-contained so no external evaluator is
+needed.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def sorted_by_frame_id(pose_dict: dict):
+    """(poses, frame ids) of ``pose_dict`` in the order of the ids as
+    integers (pose_utils.py:7-14)."""
+    items = sorted(pose_dict.items(), key=lambda kv: int(kv[0]))
+    return [p for _, p in items], [k for k, _ in items]
 
 
 def horn_align(model: np.ndarray, data: np.ndarray) -> dict:
@@ -50,6 +58,28 @@ def horn_align(model: np.ndarray, data: np.ndarray) -> dict:
         "trans_scaled_error": np.sqrt(np.sum((aligned_scaled - data) ** 2, axis=0)),
         "trans_error": np.sqrt(np.sum((aligned - data) ** 2, axis=0)),
     }
+
+
+def transfer_scale(gt_poses, est_poses, anchor_rotation=False):
+    """Sim(3)-align estimated 4x4 poses onto GT for display
+    (pose_utils.py:16-48): translations Horn-aligned with scale, rotations
+    re-anchored to the first GT rotation.  Returns (aligned poses, the
+    ``horn_align`` result, with ``rot_reanchor`` when ``anchor_rotation``)."""
+    gt_poses = [np.asarray(p, np.float64).copy() for p in gt_poses]
+    est_poses = [np.asarray(p, np.float64).copy() for p in est_poses]
+    R0_gt = gt_poses[0][:3, :3].copy()
+    R0_est = est_poses[0][:3, :3].copy()
+
+    gt_t = np.stack([p[:3, 3] for p in gt_poses], axis=1)
+    est_t = np.stack([p[:3, 3] for p in est_poses], axis=1)
+    result = horn_align(est_t, gt_t)
+
+    for i, pose in enumerate(est_poses):
+        pose[:3, 3] = result["model_aligned_scaled"][:, i]
+        pose[:3, :3] = R0_gt @ R0_est.T @ pose[:3, :3]
+    if anchor_rotation:
+        result["rot_reanchor"] = R0_gt @ R0_est.T
+    return est_poses, result
 
 
 def ate_rmse(gt_traj: dict, est_traj: dict, align_scale: bool = True) -> dict:

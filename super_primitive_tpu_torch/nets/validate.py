@@ -14,7 +14,8 @@ tiers:
    import): the original model runs the same image from the ``.pth``, and
    the embeddings, encoder blocks, mask logits or normals are diffed.
 
-Each prints which tier ran.  Both run float32 on ``device``.
+Each prints which tier ran.  Both run float32 on ``device``, with TF32
+off (``utils.numerics.float32_matmuls``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..convert import nnet_from_flax, nnet_state_dict, sam_from_flax
+from ..utils.numerics import float32_matmuls
 from .nnet import NNET, predict_normals
 from .sam.image_encoder import config_from_state_dict
 from .sam.predictor import SamPredictor
@@ -66,6 +68,7 @@ def validate_sam(tree: dict, ckpt_path: str | None = None, image: np.ndarray | N
     """Run a converted SAM tree through the port's predictor; diff it
     against segment-anything's on the ``.pth`` when that imports.  Returns
     the metrics printed, with ``"tier"`` 1 or 2."""
+    float32_matmuls()
     sd = sam_from_flax(tree)
     cfg = config_from_state_dict(sd)
     image = sample_image() if image is None else image
@@ -144,6 +147,7 @@ def validate_nnet(tree: dict, ckpt_path: str | None = None, image: np.ndarray | 
     """Run a converted NNET tree through the port's ``predict_normals``;
     diff it against the reference scannet model on the ``.pth`` when
     ``geffnet`` and the reference's model module import."""
+    float32_matmuls()
     image = sample_image() if image is None else image
     model = NNET()
     model.load_state_dict(nnet_state_dict(nnet_from_flax(tree)))

@@ -1,7 +1,9 @@
 """Per-stage wall-clock timing that waits for the card, and a count of the
 host's reads of device values.
 
-Port of ``super_primitive_tpu/utils/timing.py`` (``StageTimer``).  A stage
+Port of ``super_primitive_tpu/utils/timing.py`` (``StageTimer``, and the
+opt-in profiler trace ``profiler_trace``), with a sampler of the host's
+resident memory (``RSSSampler``).  A stage
 ends with ``torch.cuda.synchronize()`` when the card is in use, so the time
 of asynchronously launched kernels lands in the stage that launched them
 and not in a later one that happens to wait.
@@ -17,6 +19,8 @@ timer's own synchronisation at its end.
 from __future__ import annotations
 
 import contextlib
+import os
+import threading
 import time
 from collections import defaultdict
 
@@ -85,3 +89,57 @@ class StageTimer:
                 f"{s['host_reads']:>8}"
             )
         return "\n".join(lines)
+
+
+RSS_INTERVAL_S = 0.01  # seconds between the RSS sampler's readings
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Opt-in ``torch.profiler`` trace of the enclosed work, written under
+    ``log_dir`` as a Chrome trace (``*.pt.trace.json``: TensorBoard's
+    profiler plugin, ``chrome://tracing`` or Perfetto read it); a no-op for
+    a falsy ``log_dir``.  It records host activity, and the card's where
+    CUDA is available."""
+    if not log_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))):
+        yield
+
+
+class RSSSampler:
+    """While open, a thread reads the process's resident set size from
+    ``/proc/self/statm`` (Linux) every ``RSS_INTERVAL_S``: ``start`` is the
+    reading on entry and ``peak`` the largest so far, in bytes (final once
+    the block exits).  It covers only the span it is open, unlike
+    ``ru_maxrss``, which a process inherits from the one that started it
+    (the parent's high-water mark outlives fork and exec)."""
+
+    def __init__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def read(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(RSS_INTERVAL_S):
+            self.peak = max(self.peak, self.read())
+
+    def __enter__(self) -> "RSSSampler":
+        self.start = self.peak = self.read()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.read())

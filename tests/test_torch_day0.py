@@ -1,13 +1,15 @@
 """The day-0 checkpoint path of the PyTorch port (CPU): its
 ``convert_checkpoints`` against the root ``convert_checkpoints.py`` (the
-JAX package's CLI), ``nets/validate.py``, and the day-0 rehearsal.
+JAX package's CLI), ``nets/validate.py``, the day-0 rehearsal, and its
+full-size leg's function at the tiny configuration.
 
 Bounds: the port's ``.npz`` trees equal the JAX CLI's, leaf for leaf and
 bit for bit, on the same synthetic published-name ``.pth`` files, and
 each package's loader reads the other's; validation runs tier 1 with every
 stage finite (the reference torch packages are not installed here); the
 rehearsal reaches a Sim(3) ATE below 0.05, the JAX rehearsal's bound, at
-6 frames (the root rehearsal's 8, cut for time).
+6 frames (the root rehearsal's 8, cut for time).  The leg at ViT-H size
+is ``tests/test_torch_day0_full.py`` (slow).
 """
 
 import subprocess
@@ -92,6 +94,29 @@ def test_validate_runs_tier_one(checkpoints, capsys):
     assert out.count("tier 1 (the port alone) ran") == 2
     for stage in ("image_embedding", "mask_logits", "iou_pred", "normals", "kappa"):
         assert stage in out
+
+
+def test_full_size_leg_at_tiny_size(checkpoints, tmp_path):
+    """``full_size_leg``, the body of ``--full-size``, at VIT_TINY_TEST: its
+    ``.npz`` equals the root CLI's on the leg's own ``.pth``."""
+    leg = day0_rehearsal.full_size_leg(tmp_path / "models", checkpoints["port"]["nnet"], "cpu",
+                                       sam_cfg="tiny")
+    assert leg["pth"].name == "sam_vit_h_4b8939_full.pth" and leg["npz"].is_file()
+    assert leg["pth_bytes"] == leg["pth"].stat().st_size > 0
+    assert leg["npz_bytes"] == leg["npz"].stat().st_size > 0
+    steps = leg["peak_rss_bytes_by_step"]
+    assert 0 < leg["rss_start_bytes"] <= steps["write"] <= steps["convert_validate"]
+    assert steps["convert_validate"] <= steps["step2"] == leg["peak_rss_bytes"]
+    assert leg["peak_device_bytes"] is None
+    assert all(leg[k] >= 0 for k in ("write_s", "convert_s", "validate_s", "step2_s"))
+    assert np.isfinite(leg["embed_std"]) and leg["embed_std"] > 0
+    jax_npz = tmp_path / "jax_sam.npz"
+    p = subprocess.run(
+        [sys.executable, "convert_checkpoints.py", "--sam", str(leg["pth"]), "--out-sam",
+         str(jax_npz), "--sam-cfg", "tiny", "--cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert_trees_equal(convert.load_npz_tree(leg["npz"]), convert.load_npz_tree(jax_npz))
 
 
 def test_day0_rehearsal(tmp_path):

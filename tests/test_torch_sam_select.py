@@ -75,7 +75,7 @@ def test_stats_from_lowres(lowres):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_out_size_other_than_lowres_not_ported(lowres):
+def test_select_at_twice_lowres_equals_jax(lowres):
     """The selection at out_size = 2S, once refused, now resizes the picked
     logits as JAX does; the 2x upsample is exact, so everything is equal."""
     tl, ti = lowres
