@@ -61,10 +61,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      Replica layouts written from the planes sequence
      (``eval/dataset_trees.py``; 1500 sparse pixels an image): (a) ``python
      -m super_primitive_tpu_torch.evaluate_void --sam-ckpt --nnet-ckpt``
-     (its ``main``) with ``configs/void_dataset.yaml`` unchanged over two
-     images, on ``.npz`` trees of phase 8's synthetic weights written by
+     (its ``main``) with ``configs/void_dataset.yaml`` unchanged over one
+     image, on ``.npz`` trees of phase 8's synthetic weights written by
      ``convert.sam_to_flax`` / ``nnet_to_flax``,
-     then a third image through ``DepthCompletion(invalid_ratio_thresh=0)``
+     then a second image through ``DepthCompletion(invalid_ratio_thresh=0)``
      so that the loose rerun, and with it K3's statistics path, runs; K2
      and K3 launched, no K1, every K2 field holding a plan; per image the
      wall and the stage split, K3 slabs, peak memory, both metric tables;
@@ -145,12 +145,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``convert.sam_to_flax`` of the same synthetic state dict (the tree
      phases 8 and 9 run); the files' bytes, the write, convert and validate
      s, peak host RSS and device memory, and the float32 ViT-H forward on
-     the converted tree, warm.
+     the converted tree, warm;
+  13. the SAM encoder's attention lowerings and K4 (``ext_attention``) at
+     ViT-H on phase 8's weights at a trained net's scale: the two bf16
+     encoders the path's predictors build (the default's windowed and
+     global "ext", persistent windows and tanh GELU; the "flash"
+     predictor's, which keeps its caller's config), bf16 global "xla" and
+     "flash" with the default's windows, and the materialised-bias "xla"
+     with per-block partitions, each within ``BF16_TOL["features"]`` of
+     the float32 "xla" encoder, and the float32 "flash" encoder within
+     ``FLASH_F32_TOL`` of it; K4 launched 4 times a "flash" encode and
+     never otherwise; each encoder's ms, busy ms, kernels and peak memory;
+     a real-net keyframe through the bf16 "flash" predictor (K4 and K3
+     launched, finite) beside the default keyframe; K4 on the inputs that
+     keyframe and the float32 "flash" encoder gave it and at a ragged and
+     the tiny config's shape, in float32 within ``K4_F64_TOL`` of the
+     plain version's distance from float64 and in bf16 within
+     ``K4_BF16_TOL`` of the plain version, with the plain version's,
+     ``F.scaled_dot_product_attention``'s (timed here only) and the
+     bound's times (bf16 at the tensor cores' 989 TFLOP/s) and each one's
+     peak memory.
 
-Launch counts are reset just before the paths of phases 4, 5, 5b, 7, 7b,
-8, 9, 10 (at its restore), 11b (in each rank), 12a-c and 12e (in its
-process) and read just after; a kernel of a path that was not launched
-there fails the run.
+Launch counts (every kernel's, ``reset_launch_counts``) are reset just
+before the paths of phases 4, 5, 5b, 7, 7b, 8, 9, 10 (at its restore), 11b
+(in each rank), 12a-c, 12e (in its process) and 13c and read just after; a
+kernel of a path that was not launched there fails the run, and so does K4
+launched on any path before phase 13.
 Those paths also keep a copy of each kernel's inputs at every shape they
 give it (phase 9 keeps K2's largest and longest-running calls whole), and
 after the path each kernel is checked and timed on them.
@@ -182,10 +202,12 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor-
-# core) flop/s, the types these kernels compute in.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor-
+# core) flop/s, the type K1-K3 compute in, and the dense bf16 tensor-core
+# rate, the peak for K4's bf16 inputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # its L2 cache (50 MB): device times cycle through copies of the inputs
 # that together hold three times this, so every call reads from HBM
 L2_BYTES = 50 * 2**20
@@ -217,9 +239,11 @@ NET_CARD_TOL = {"block": 1e-5, "decoder": 4e-6, "nnet": 1e-5}
 # 2.5e-2 (features), 2.8e-2 (logits) and 1.2e-2 (IoU)
 BF16_TOL = {"features": 5e-2, "logits": 6e-2, "iou": 3e-2}
 # phase 9: VOID1500 density (1500 sparse pixels an image, drawn from the
-# seed), two images through evaluate_void and a third through the forced
-# loose rerun; TUM and Replica trees of 10 and 5 frames
-VOID_IMAGES, VOID_SPARSE, VOID_SEED = 2, 1500, 9
+# seed), one image through evaluate_void and a second through the forced
+# loose rerun (each takes about a minute of host work, and the script must
+# stay well inside its 1200 s limit); TUM and Replica trees of 10 and 5
+# frames
+VOID_IMAGES, VOID_SPARSE, VOID_SEED = 1, 1500, 9
 TUM_FRAMES, REPLICA_FRAMES = 10, 5
 # phase 9c's TUM odometry run must make the three ground-truth keyframes
 # that trajectory.png needs: planes_odom.yaml's keyframe translation
@@ -247,19 +271,53 @@ VOID_FAKE_ABSREL, VOID_FAKE_VALIDITY = 0.06, 0.90
 FULLRES_OUT, FULLRES_TOL = 512, 1e-5
 # phase 12d: photometric_cost in each normal mode, card against CPU
 MODE_TOL = 1e-5
+# phase 13: K4 in float32 against the float64 function, relative to its
+# max: within K4_F64_TOL = (factor, floor) of the plain version's distance,
+# factor x plain + floor (at ViT-H's shape each is about 1.8e-5 from
+# float64; a kernel that rounds to bf16 inside lands near 2e-3); in bf16
+# against the plain version, relative to max|plain|: 8e-3, two bf16
+# roundings (the kernel's output and the plain version's, both float32
+# inside)
+K4_F64_TOL = (2.0, 1e-6)
+K4_BF16_TOL = 8e-3
+# the float32 "flash" encoder against the float32 "xla" one, relative to
+# the latter's largest feature
+FLASH_F32_TOL = 1e-4
+# K4's check shapes beside the path's: a ragged L (not a multiple of the
+# kernel's 64-query tile) and the tiny config's (a 4x6 token grid, 2 heads
+# of 16: D_qk 16 + 4 + 6)
+K4_RAGGED = (3, 1000, 208, 80)
+K4_TINY = (2, 24, 26, 16)
 # phase 9's K2 check on a recorded call: its first segments and the ones
 # that ran the most iterations, this many of each, against the plain
 # version, which solves one segment at a time
 K2_VOID_SLICE = 8
 
 
+def reset_launch_counts():
+    """Set every kernel's launch count to 0: K1 and K2 (``ops.stencil``),
+    K3 (``ops.phase_counts``), K4 (``ops.attention``)."""
+    from super_primitive_tpu_torch.ops import attention, phase_counts, stencil
+
+    for module in (stencil, phase_counts, attention):
+        module.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """{kernel: launches since the last :func:`reset_launch_counts`}."""
+    from super_primitive_tpu_torch.ops import attention, phase_counts, stencil
+
+    return {**stencil.launch_counts, **phase_counts.launch_counts, **attention.launch_counts}
+
+
 def fail(msg: str):
     raise RuntimeError(msg)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -817,13 +875,13 @@ def check_bini_480(torch, bini, stencil):
         fail("480x640 no longer takes the K1 route")
 
     with first_inputs(torch, stencil, "bini_apply") as path_inputs:
-        stencil.reset_launch_counts()
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         zt_k = bini.integrate_normals(normals, masks, K, cfg)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
-        launches = dict(stencil.launch_counts)
+        launches = launch_counts()
     t0 = time.perf_counter()
     zt_r = bini.integrate_normals(normals, masks, K, cfg, plain=True)
     torch.cuda.synchronize()
@@ -875,9 +933,9 @@ def run_slice(torch, stencil):
     ds = PlanesSequence(n_frames=5, H=480, W=640, path="linear")
     fe = StructuredFakeFrontend(cfg, n_cells=64, device="cuda")
     with first_inputs(torch, stencil, "bini_cg") as path_inputs:
-        stencil.reset_launch_counts()
+        reset_launch_counts()
         r = run_two_frame(cfg, fe, ds, device="cuda")
-        launches = dict(stencil.launch_counts)
+        launches = launch_counts()
     drop = r["pose_err_init"] / max(r["pose_err_final"], 1e-12)
     print(f"slice 480x640: {r['num_segments']} segments, K2 launches "
           f"{launches['bini_cg']}, K1 launches {launches['bini_apply']}; frontend "
@@ -926,10 +984,9 @@ def run_slice_gn(torch, stencil, k3, adam: dict):
     cfg = slice_config(480, 640, solver="gn")
     ds = PlanesSequence(n_frames=5, H=480, W=640, path="linear")
     fe = StructuredFakeFrontend(cfg, n_cells=64, device="cuda")
-    stencil.reset_launch_counts()
-    k3.reset_launch_counts()
+    reset_launch_counts()
     r = run_two_frame(cfg, fe, ds, device="cuda")
-    launches = {**stencil.launch_counts, **k3.launch_counts}
+    launches = launch_counts()
     if r["solver"] != "gn":
         fail(f"run_two_frame took {r['solver']} for mapping.solver: gn")
     aligned = {k: scale_aligned_err(torch, r[k], r["T_rel_gt"]) for k in ("T_init", "pose")}
@@ -1213,11 +1270,10 @@ def run_vo(torch, stencil, k3):
 
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs:
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         r = run_e2e("adam", frames=VO_FRAMES, device="cuda",
                     save_path=str(Path("build") / "chip_smoke" / "vo"))
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     timer, ate = r["timer"], r["ate"]["rmse"]
     track = timer.summary()["track"]
     kf_s = [w for _, w, _ in r["kf_add_log"]]
@@ -1304,11 +1360,10 @@ def run_vo_gn(torch, stencil, k3, adam: dict, adam_inputs: dict):
             first_inputs(torch, k3, "phase_counts") as k3_inputs, \
             kept_calls(odometry, "gn_mapping", keep_fullest_gn(kept["gn"])), \
             kept_calls(process_frame, "integrate_normals_cropped", keep_first_bini(kept["bini"])):
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         r = run_e2e("gn", frames=VO_FRAMES, device="cuda",
                     save_path=str(Path("build") / "chip_smoke" / "vo_gn"))
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     kept = host_copy(kept)
     timer, odom, ate = r["timer"], r["odom"], r["ate"]["rmse"]
     counts, totals = timer.counts, timer.totals
@@ -1518,7 +1573,8 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     """Phase 8: the real nets at full width through the frontend, two
     keyframes, a supporting frame and a 4-frame VO run on the card; then K3
     and K2 against their plain versions on the inputs the real nets gave
-    them, and the nets' times."""
+    them, and the nets' times.  Also returns the synthetic weights (host
+    state dicts, phase 13's)."""
     import numpy as np
 
     from super_primitive_tpu_torch.data.synthetic import PlanesSequence
@@ -1536,19 +1592,19 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     from super_primitive_tpu_torch.utils.timing import StageTimer
 
     t_phase = t0 = time.perf_counter()
-    sd, nsd = synth_sam_state_dict(VIT_H), synth_nnet_state_dict()
+    weights = {"sam": synth_sam_state_dict(VIT_H), "nnet": synth_nnet_state_dict()}
     synth_s = time.perf_counter() - t0
     cfg = real_nets_config(pkg_dir)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fe = frontend_from_state_dicts(cfg, sd, nsd, "cuda")
+    fe = frontend_from_state_dicts(cfg, weights["sam"], weights["nnet"], "cuda")
     # the precision checks run on the weights at a trained net's scale
-    sd = scale_like_trained(sd)
+    sd = scale_like_trained(weights["sam"])
     p32 = SamPredictor(sd, VIT_H, device="cuda")
     p16 = SamPredictor(sd, VIT_H, compute_dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    del sd, nsd
+    del sd
     predictor, nnet = fe.mask_predict_fn.predictor, fe.normals_fn.model
     print(f"real nets: synthetic weights {synth_s:.1f} s, loaded (SAM bf16, and bf16 and "
           f"float32 on the scaled weights; NNET) {load_s:.1f} s", flush=True)
@@ -1569,10 +1625,9 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     kf_s, segs = [], []
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs:
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         for i in (0, 1):
-            before = {**stencil.launch_counts, **k3.launch_counts}
+            before = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             kf = fe.process_to_kf(ds[i]["image"], ds[i]["intrinsics"])
@@ -1593,7 +1648,7 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
         t0 = time.perf_counter()
         r = run_odometry(cfg, fe, ds, max_frames=REAL_NET_FRAMES, device="cuda")
         vo_s = time.perf_counter() - t0
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     odom = r["odom"]
     est = dict(odom.global_track_trajectory)
     finite = all(np.isfinite(np.asarray(T)).all() for T in est.values())
@@ -1662,7 +1717,7 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
                "vo_keyframes": odom.num_kfs, "vo_wall_s": vo_s,
                "vo_kf_add_s": [w for _, w, _ in odom.kf_add_log], "vo_ate_sim3": ate,
                "vo_stage_s": vo_stages, "launches": launches, "times": times}
-    return launches, k2_rows, k3_rows, summary, decode_inputs
+    return launches, k2_rows, k3_rows, summary, decode_inputs, weights
 
 
 @contextlib.contextmanager
@@ -1753,21 +1808,20 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
     # K3's first call at each slab count
     with k2_calls(torch, stencil) as k2_seen, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs, slab_counts(k3) as slabs:
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         res = evaluate_void.main(["--dataset", str(work / "void"), "--config", str(cfg_path),
                                   "--sam-ckpt", str(work / "sam.npz"),
                                   "--nnet-ckpt", str(work / "nnet.npz"),
                                   "--max-images", str(VOID_IMAGES)])
         cli_s = time.perf_counter() - t0
-        cli = {"launches": {**stencil.launch_counts, **k3.launch_counts},
+        cli = {"launches": launch_counts(),
                "k3_slabs": slabs["n"], "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
         fe = res["completion"].frontend
         sample = VoidDataset(str(work / "void"))[VOID_IMAGES]
         dc = DepthCompletion(fe, invalid_ratio_thresh=0.0)
         fe.timer = dc.timer = StageTimer("cuda")
-        before = {**stencil.launch_counts, **k3.launch_counts}
+        before = launch_counts()
         slabs0 = slabs["n"]
         torch.cuda.reset_peak_memory_stats()
         with stats_path_counts(fe.mask_predict_fn.predictor, k3) as stats:
@@ -1776,7 +1830,7 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
                                                   sample["sparse_depth"])
             torch.cuda.synchronize()
             loose_s = time.perf_counter() - t0
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     loose = {"wall_s": loose_s, "segments": list(dc.segments),
              "stage_s": {k: round(v, 4) for k, v in fe.timer.totals.items()},
              "launches": {k: launches[k] - before[k] for k in launches},
@@ -1835,8 +1889,7 @@ def run_void_fake(torch, stencil, k3, pkg_dir: Path, work: Path, seq) -> dict:
     dc = DepthCompletion(fe)
     ds = VoidDataset(str(work / "void"))
     rows = []
-    stencil.reset_launch_counts()
-    k3.reset_launch_counts()
+    reset_launch_counts()
     for i in range(VOID_IMAGES):
         s = ds[i]
         fe.observe(seq[i])
@@ -1847,7 +1900,7 @@ def run_void_fake(torch, stencil, k3, pkg_dir: Path, work: Path, seq) -> dict:
         m.compute(depths, s["gt_depth"], (depths > 1e-6) & s["gt_valid"])
         rows.append({"absrel": float(m.absrel), "rmse_mm": float(m.rmse), "segments": dc.segments,
                      "validity_rate": float((depths > 1e-6).mean()), "wall_s": wall})
-    launches = {**stencil.launch_counts, **k3.launch_counts}
+    launches = launch_counts()
     print(f"VOID structured fake: {json.dumps(rows)}; launches {launches}; bounds AbsRel <= "
           f"{VOID_FAKE_ABSREL}, validity >= {VOID_FAKE_VALIDITY}", flush=True)
     if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
@@ -1929,8 +1982,7 @@ def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -
         pkg_dir, work, "replica_sfm.yaml", "planes_sfm.yaml",
         {"type": "replica", "path": str(replica), "intrinsics": K, "source_id": 0,
          "target_id": 4}, work / "replica_out")
-    stencil.reset_launch_counts()
-    k3.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     live = work / "tum_live"
     run_sfm.main(["--config", str(odom_cfg), "--odom", "--fake-frontend",
@@ -1939,7 +1991,7 @@ def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -
     t0 = time.perf_counter()
     run_sfm.main(["--config", str(sfm_cfg), "--fake-frontend"])
     sfm_s = time.perf_counter() - t0
-    launches = {**stencil.launch_counts, **k3.launch_counts}
+    launches = launch_counts()
     tum_out, rep_out = work / "tum_out", work / "replica_out"
     traj = np.loadtxt(tum_out / "converted_tum_traj.txt", ndmin=2)
     result = np.load(rep_out / "two_frame_result.npz")
@@ -2100,15 +2152,14 @@ def run_resume(torch, stencil, k3, card: str) -> tuple[dict, dict]:
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs:
         def at_restore():
-            stencil.reset_launch_counts()
-            k3.reset_launch_counts()
+            reset_launch_counts()
             k2_inputs.clear()
             k3_inputs.clear()
 
         r = run_e2e("gn", frames=RESUME_FRAMES, device="cuda", save_path=str(save_path),
                     restore_split=RESUME_SPLIT, save_every=RESUME_SAVE_EVERY,
                     on_restore=at_restore)
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     first, odom = r["first_leg"], r["odom"]
 
     def ms_per_tracked(timer):
@@ -2191,10 +2242,9 @@ def sharded_rank(mesh, jobs, checks):
         torch.cuda.reset_peak_memory_stats(mesh.device)
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs:
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         outs = run_flows(mesh, jobs)
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     warm = [o["seconds"] for o in run_flows(mesh, jobs)]
     return {"outs": outs, "warm_s": warm, "checks": run_flows(mesh, checks),
             "launches": launches, "recorded": {"bini_cg": list(k2_inputs.values()),
@@ -2429,8 +2479,7 @@ def run_native_loader(torch, stencil, k3, pkg_dir: Path, work: Path, card: str):
         ds = TUMDataset(str(tum), traj_file=traj, intrinsics=K, native=native)
         fe = StructuredFakeFrontend(cfg, n_cells=64, device="cuda", device_sam=True)
         odom = Odometry(cfg, fe, ds, device="cuda")  # run_sfm --odom's loop
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         with read_waits(ds) as waits, first_inputs(torch, stencil, "bini_cg") as k2_in, \
                 first_inputs(torch, k3, "phase_counts") as k3_in:
             torch.cuda.synchronize()
@@ -2438,7 +2487,7 @@ def run_native_loader(torch, stencil, k3, pkg_dir: Path, work: Path, card: str):
             kf_traj = odom.run(max_frames=TUM_FRAMES)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
         if launches["bini_cg"] == 0 or launches["phase_counts"] == 0:
             fail(f"the TUM odometry run ({name}) launched K2 {launches['bini_cg']} and K3 "
                  f"{launches['phase_counts']} times")
@@ -2481,12 +2530,11 @@ def run_day0(torch, stencil, k3, work: Path, card: str) -> tuple[dict, dict]:
     """Phase 12b: the day-0 rehearsal on the card, ATE below 0.05."""
     from super_primitive_tpu_torch import day0_rehearsal
 
-    stencil.reset_launch_counts()
-    k3.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     r = day0_rehearsal.rehearse(work / "day0", n_frames=8, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {**stencil.launch_counts, **k3.launch_counts}
+    launches = launch_counts()
     ate = r["ate"]["rmse"]
     if not ate < day0_rehearsal.ATE_LIMIT:
         fail(f"the day-0 rehearsal's ATE {ate} is not below {day0_rehearsal.ATE_LIMIT}")
@@ -2520,7 +2568,7 @@ def run_sam_fullres(torch, k3, decode: dict, f32_state_dict: dict, card: str):
     hw, T, out = tuple(decode["input_hw"]), 1024, FULLRES_OUT
     pred = decode_only(decode["state_dict"], decode["compute_dtype"], "cuda")
     pts = decode["pts"].numpy()
-    k3.reset_launch_counts()
+    reset_launch_counts()
     with first_inputs(torch, k3, "phase_counts") as k3_in:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2530,7 +2578,7 @@ def run_sam_fullres(torch, k3, decode: dict, f32_state_dict: dict, card: str):
         sel = pred.predict_points_select(pts, iou_threshold=0.0, stability_threshold=0.0,
                                          out_size=out)
         select_s = time.perf_counter() - t0
-    launches = dict(k3.launch_counts)
+    launches = launch_counts()
     if launches["phase_counts"] == 0:
         fail("the out_size != S statistics and selection did not launch K3")
     hs, ws = round(hw[0] * out / T), round(hw[1] * out / T)
@@ -2687,10 +2735,9 @@ def day0_full_rank(mesh, work: str) -> dict:
     nnet_npz = work / "nnet_scannet.npz"
     save_npz_tree(nnet_npz, nnet_to_flax(synth_nnet_state_dict()))
     with first_inputs(torch, k3, "phase_counts") as k3_inputs:
-        stencil.reset_launch_counts()
-        k3.reset_launch_counts()
+        reset_launch_counts()
         leg = day0_rehearsal.full_size_leg(work, nnet_npz, "cuda")
-        launches = {**stencil.launch_counts, **k3.launch_counts}
+        launches = launch_counts()
     t0 = time.perf_counter()
     got = load_npz_tree(leg["npz"])
     mismatch = tree_mismatch(got, sam_to_flax(synth_sam_state_dict(VIT_H), depth=VIT_H.depth))
@@ -2764,13 +2811,307 @@ def run_slice10(torch, stencil, k3, pkg_dir: Path, decode: dict, f32_state_dict:
     full["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(work, ignore_errors=True)
     launches = {"loader_native": native_l, "loader_image_io": io_l, "day0": day0_l,
-                "sam_fullres": {"bini_apply": 0, "bini_cg": 0, **fullres_l},
+                "sam_fullres": fullres_l,
                 "day0_full": full_l}
     summary = {"loader": loader, "day0": day0, "sam_fullres": fullres, "normal_modes": modes,
                "day0_full": full, "phase_s": time.perf_counter() - t_phase}
     print(f"phase 12 on {card}: {summary['phase_s']:.1f} s (12e {full['phase_s']:.1f} s)",
           flush=True)
     return launches, k2_loader, k3_loader, k3_fullres, k3_full, summary
+
+
+def peak_alloc_bytes(torch, fn) -> int:
+    """Device memory one call of ``fn`` allocates at its peak, over what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def sdpa_backends(torch, q, k, v) -> list[str]:
+    """The backends of ``F.scaled_dot_product_attention`` that take these
+    inputs (scale 1), each tried alone: the dispatcher takes one of them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    ok = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(q, k, v, scale=1.0)
+            ok.append(b.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    return ok
+
+
+def k4_row(torch, k4, q, k, v, label: str) -> dict:
+    """K4 on one input: in float32 against the float64 function within
+    ``K4_F64_TOL`` of the plain version's distance from it, in bf16 against
+    ext_attention_reference within ``K4_BF16_TOL`` of max|plain|; kernel
+    (events and, at a path's widths, device) time, plain time, the library
+    call's (``F.scaled_dot_product_attention`` with scale 1, timed here
+    only) and the backends that take it, each one's peak device memory, and
+    the bound at the inputs' type's peak."""
+    import torch.nn.functional as F
+
+    BH, L, d_qk = q.shape
+    d_v = v.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    got = k4.ext_attention(q, k, v)
+    want = k4.ext_attention_reference(q, k, v).float()
+    scale = float(want.abs().max())
+    err = float((got.float() - want).abs().max()) / scale
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+    lib_err = float((library().float() - want).abs().max()) / scale
+    # both against the same function in float64 on the same inputs
+    exact = (q.double() @ k.double().transpose(-2, -1)).softmax(dim=-1) @ v.double()
+    exact_scale = float(exact.abs().max())
+    f64_err = {"kernel": float((got.double() - exact).abs().max()) / exact_scale,
+               "plain": float((want.double() - exact).abs().max()) / exact_scale}
+    del exact
+    ms = time_ms(torch, lambda: k4.ext_attention(q, k, v), reps=5)
+    nbytes = (2 * d_qk + 2 * d_v) * BH * L * q.element_size()
+    dev = {}
+    if nbytes * 4 >= L2_BYTES:  # device_ms cycles 3x the L2 in copies: skip the tiny shape
+        dev_ms, graph_ms, timer, attempts = device_ms(
+            torch, k4.ext_attention, (q, k, v), ("ext_attention_kernel",))
+        dev = {"device_ms": dev_ms, "graph_ms": graph_ms, "device_timer": timer,
+               "timing_attempts": attempts}
+    plain_ms = time_ms(torch, lambda: k4.ext_attention_reference(q, k, v), reps=3)
+    library_ms = time_ms(torch, library, reps=5)
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    flops = 2 * BH * L * L * (d_qk + d_v)
+    b_ms, b_by = bound_ms(nbytes, flops, peak)
+    row = {"label": label, "shape": [BH, L, d_qk, d_v], "dtype": dtype, "max_abs_err": err,
+           "max_abs_err_of": "max|plain|", "library_err": lib_err, "err_vs_f64": f64_err,
+           "ms": ms, **dev,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_backends": sdpa_backends(torch, q, k, v),
+           "peak_bytes": peak_alloc_bytes(torch, lambda: k4.ext_attention(q, k, v)),
+           "plain_peak_bytes": peak_alloc_bytes(
+               torch, lambda: k4.ext_attention_reference(q, k, v)),
+           "library_peak_bytes": peak_alloc_bytes(torch, library),
+           "bound_ms": b_ms, "bound_by": b_by, "peak_flop_per_s": peak,
+           "bytes": nbytes, "flops": flops}
+    print(f"K4 {label} {BH}x{L}x{d_qk}/{d_v} {dtype}: max err {err:.2e} of max|plain| "
+          f"(library {lib_err:.2e}; against float64 kernel {f64_err['kernel']:.2e}, plain "
+          f"{f64_err['plain']:.2e}); kernel {ms:.3f} ms"
+          + (f" (device {dev['device_ms']:.3f} ms, graph {dev['graph_ms']:.3f} ms)"
+             if dev else "")
+          + f", plain {plain_ms:.3f} ms, library {library_ms:.3f} ms "
+          f"(backends that take it {row['library_backends']}); "
+          f"bound {b_ms:.4f} ms ({b_by}, {peak / 1e12:.0f} TFLOP/s); peak memory kernel "
+          f"{row['peak_bytes'] / 2**20:.1f} MiB, plain {row['plain_peak_bytes'] / 2**20:.1f} "
+          f"MiB, library {row['library_peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    if dtype == "float32":
+        factor, floor = K4_F64_TOL
+        limit = factor * f64_err["plain"] + floor
+        if not f64_err["kernel"] <= limit:
+            fail(f"K4 departs from float64 at {label}: {f64_err['kernel']} > {limit}")
+    elif not err <= K4_BF16_TOL:
+        fail(f"K4 disagrees with its plain version at {label}: {err} > {K4_BF16_TOL}")
+    if dev and dev["device_ms"] < b_ms:
+        fail(f"K4's device time at {label} is below its bound")
+    return row
+
+
+def encoder_with(torch, cfg, weights: dict):
+    """An ``ImageEncoderViT(cfg)`` on the card whose parameters are the
+    tensors of ``weights`` (``image_encoder.*`` names without the prefix),
+    shared, not copied."""
+    from super_primitive_tpu_torch.nets.sam.image_encoder import ImageEncoderViT
+
+    with torch.device("meta"):
+        enc = ImageEncoderViT(cfg)
+    enc.load_state_dict(weights, assign=True)
+    return enc.eval().requires_grad_(False)
+
+
+def run_attention(torch, k4, weights: dict, pkg_dir: Path, card: str):
+    """Phase 13: the SAM encoder's attention lowerings and K4 at ViT-H.
+    (b) the encoder on phase 8's weights at a trained net's scale, one
+    1024² image: the two bf16 encoders the path runs, each with the config
+    its predictor resolved (``bf16_ext``: the default predictor's, windowed
+    and global "ext", persistent windows, tanh GELU; ``bf16_flash``: the
+    predictor built with global "flash", which keeps the caller's config as
+    the JAX package's does: windowed "xla" per block, exact GELU), and
+    beside them
+    bf16 under global "xla" and "flash" with the default's windows
+    (``bf16_xla``, ``bf16_flash_persistent``) and "xla" with per-block
+    partitions (``bf16_xla_per_block``), each within
+    ``BF16_TOL["features"]`` of the float32 "xla" encoder, and the float32
+    "flash" encoder within ``FLASH_F32_TOL`` of it; K4 launched 4 times a
+    "flash" encode and never otherwise; each one's ms, busy ms, kernels and
+    peak memory.  (c) the path, on phase 8's weights as they are (at a
+    trained net's scale the random decoder gives no mask): one real-net
+    keyframe through a FrontProcessor on the "flash" predictor (K4 and K3
+    launched, finite), beside the default keyframe of
+    ``frontend_from_state_dicts``.  (a) K4 against its plain version on the inputs the path's
+    keyframe and the float32 flash encoder gave it, at a ragged and at the
+    tiny config's shape."""
+    import dataclasses
+
+    import numpy as np
+
+    from super_primitive_tpu_torch.data.synthetic import PlanesSequence
+    from super_primitive_tpu_torch.frontend.process_frame import (
+        FrontProcessor,
+        frontend_from_state_dicts,
+        wire_mask_predictor,
+    )
+    from super_primitive_tpu_torch.image.resize import linear_resize
+    from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
+    from super_primitive_tpu_torch.nets.sam.predictor import PIXEL_MEAN, PIXEL_STD, SamPredictor
+    from super_primitive_tpu_torch.nets.synth import scale_like_trained
+    from super_primitive_tpu_torch.utils.numerics import float32_matmuls
+
+    t_phase = time.perf_counter()
+    float32_matmuls()
+    cfg = real_nets_config(pkg_dir)
+    ds = PlanesSequence(n_frames=1, H=480, W=640, path="linear")
+    image_u8 = (np.clip(ds[0]["image"], 0, 1) * 255).astype(np.uint8)
+    sam_img = linear_resize(image_u8, tuple(cfg.sam_params.infer_resolution))
+    img = (torch.from_numpy(sam_img).cuda().float() - torch.tensor(PIXEL_MEAN).cuda()) \
+        / torch.tensor(PIXEL_STD).cuda()
+    T = VIT_H.img_size
+    x32 = torch.nn.functional.pad(img, (0, 0, 0, T - img.shape[1], 0, T - img.shape[0]))[None]
+    x16 = x32.to(torch.bfloat16)
+
+    # the path's two frontends: the default one and one on a "flash" predictor
+    fe = frontend_from_state_dicts(cfg, weights["sam"], weights["nnet"], "cuda")
+    flash = SamPredictor(weights["sam"], dataclasses.replace(VIT_H, global_attn_impl="flash"),
+                         compute_dtype=torch.bfloat16, device="cuda")
+    fe_flash = FrontProcessor(cfg, fe.normals_fn, wire_mask_predictor(flash), device="cuda")
+
+    # (b) the encoders, one set of device weights for each dtype, the
+    # path's two under the configs their predictors resolved
+    sd = scale_like_trained(weights["sam"])
+    w32 = {k.removeprefix("image_encoder."): torch.from_numpy(np.asarray(v)).cuda()
+           for k, v in sd.items() if k.startswith("image_encoder.")}
+    del sd
+    w16 = {k: v.to(torch.bfloat16) for k, v in w32.items()}
+    default_cfg = fe.mask_predict_fn.predictor.cfg
+    runs = {
+        "bf16_xla": (encoder_with(torch, dataclasses.replace(default_cfg, global_attn_impl="xla"),
+                                  w16), x16),
+        "bf16_ext": (encoder_with(torch, default_cfg, w16), x16),
+        "bf16_flash": (encoder_with(torch, flash.cfg, w16), x16),
+        "bf16_flash_persistent": (encoder_with(
+            torch, dataclasses.replace(default_cfg, global_attn_impl="flash"), w16), x16),
+        # the bf16 lowering before the predictor's switch: materialised bias
+        # in every block, one partition a block
+        "bf16_xla_per_block": (encoder_with(torch, dataclasses.replace(VIT_H, gelu_approx=True),
+                                            w16), x16),
+        "f32_xla": (encoder_with(torch, VIT_H, w32), x32),
+        "f32_flash": (encoder_with(torch, dataclasses.replace(VIT_H, global_attn_impl="flash"),
+                                   w32), x32),
+    }
+    feats, k4_inputs = {}, {}
+    for name, (enc, x) in runs.items():
+        with first_inputs(torch, k4, "ext_attention") as seen:
+            reset_launch_counts()
+            feats[name] = enc(x).float()
+            torch.cuda.synchronize()
+            n = launch_counts()["ext_attention"]
+        if name == "f32_flash":
+            k4_inputs.update({(name, shape): args for shape, args in seen.items()})
+        want = len(VIT_H.global_attn_indexes) if enc.cfg.global_attn_impl == "flash" else 0
+        if n != want:
+            fail(f"the {name} encoder launched K4 {n} times, not {want}")
+    ref = feats["f32_xla"]
+    enc_rows = {}
+    for name, (enc, x) in runs.items():
+        ecfg = enc.cfg
+        ms = time_ms(torch, lambda: enc(x), reps=2 if name.startswith("f32") else 5)
+        busy, kernels = busy_ms(torch, lambda: enc(x))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc(x)  # the host's time to enqueue one encode: the wall's floor
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(feats[name]).all())
+        enc_rows[name] = {"config": {f: getattr(ecfg, f) for f in (
+                              "global_attn_impl", "windowed_attn_impl", "persistent_windows",
+                              "gelu_approx")},
+                          "err_vs_f32_xla": rel_err(feats[name], ref), "ms": ms,
+                          "busy_ms": busy,
+                          "kernels": kernels, "idle_share": 1.0 - busy / ms,
+                          "host_enqueue_ms": host,
+                          "peak_bytes": peak_alloc_bytes(torch, lambda: enc(x)),
+                          "k4_launches": len(VIT_H.global_attn_indexes)
+                          if ecfg.global_attn_impl == "flash" else 0, "finite": finite}
+        print(f"ViT-H encoder {name} on {card}: {ms:.2f} ms, busy {busy:.2f} ms in {kernels} "
+              f"kernels, host enqueue {host:.2f} ms, peak "
+              f"{enc_rows[name]['peak_bytes'] / 2**30:.3f} GiB, features against float32 xla "
+              f"{enc_rows[name]['err_vs_f32_xla']:.3e}; {enc_rows[name]['config']}", flush=True)
+        if not finite:
+            fail(f"the {name} encoder's features are not finite")
+    bad = [n for n in runs if n.startswith("bf16")
+           if not enc_rows[n]["err_vs_f32_xla"] <= BF16_TOL["features"]]
+    if bad:
+        fail(f"bf16 encoders {bad} depart from float32 beyond {BF16_TOL['features']}")
+    if not enc_rows["f32_flash"]["err_vs_f32_xla"] <= FLASH_F32_TOL:
+        fail(f"the float32 flash encoder departs from float32 xla beyond {FLASH_F32_TOL}")
+    del runs, feats, ref, w32, w16
+    torch.cuda.empty_cache()
+
+    # (c) the path: a real-net keyframe on the bf16 "flash" SAM predictor;
+    # K4's path inputs are those of its warm-up keyframe
+    kf = {}
+    for name, front in (("ext", fe), ("flash", fe_flash)):
+        with first_inputs(torch, k4, "ext_attention") as seen:
+            front.process_to_kf(ds[0]["image"], ds[0]["intrinsics"])  # warm
+        k4_inputs.update({("bf16_flash", shape): args for shape, args in seen.items()})
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = front.process_to_kf(ds[0]["image"], ds[0]["intrinsics"])
+        torch.cuda.synchronize()
+        kf[name] = {"s": time.perf_counter() - t0, "segments": int(out["regions"].shape[0]),
+                    "launches": launch_counts(),
+                    "finite": bool(np.isfinite(out["logdepth_perseg"]).all()
+                                   and np.isfinite(out["normals"]).all())}
+    path_launches = kf["flash"]["launches"]
+    print(f"real-net keyframe on {card}, bf16 SAM global flash: {kf['flash']['s']:.3f} s, "
+          f"{kf['flash']['segments']} segments, launches {path_launches}; default (ext): "
+          f"{kf['ext']['s']:.3f} s, {kf['ext']['segments']} segments", flush=True)
+    if path_launches["ext_attention"] != len(VIT_H.global_attn_indexes) \
+            or path_launches["phase_counts"] == 0 or not kf["flash"]["finite"]:
+        fail(f"the flash keyframe: launches {path_launches}, finite {kf['flash']['finite']}")
+    if kf["ext"]["launches"]["ext_attention"] != 0:
+        fail("the default keyframe launched K4")
+    del fe, fe_flash, flash
+    torch.cuda.empty_cache()
+
+    # (a) K4 against its plain version
+    path_rows = [k4_row(torch, k4, *k4_inputs[key], label=key[0])
+                 for key in sorted(k4_inputs) if key[0] == "bf16_flash"]
+    check_rows = [k4_row(torch, k4, *k4_inputs[key], label=key[0])
+                  for key in sorted(k4_inputs) if key[0] == "f32_flash"]
+    r = np.random.default_rng(13)
+    for label, (BH, L, d_qk, d_v) in (("ragged", K4_RAGGED), ("tiny", K4_TINY)):
+        q, k = (torch.from_numpy(0.3 * r.normal(size=(BH, L, d_qk)).astype(np.float32)).cuda()
+                for _ in range(2))
+        v = torch.from_numpy(r.normal(size=(BH, L, d_v)).astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            check_rows.append(k4_row(torch, k4, q.to(dtype), k.to(dtype), v.to(dtype),
+                                     label=label))
+    del k4_inputs
+    torch.cuda.empty_cache()
+    summary = {"encoders": enc_rows, "keyframes": kf, "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 13 on {card}: {summary['phase_s']:.1f} s", flush=True)
+    return path_launches, path_rows, check_rows, summary
 
 
 def main() -> int:
@@ -2794,6 +3135,7 @@ def main() -> int:
         return 1
     from super_primitive_tpu_torch.integrate import bini
     from super_primitive_tpu_torch.ops import _build, stencil
+    from super_primitive_tpu_torch.ops import attention as k4
     from super_primitive_tpu_torch.ops import phase_counts as k3
     from super_primitive_tpu_torch.run_sfm import require_device
 
@@ -2820,7 +3162,7 @@ def main() -> int:
     gn_small = gn_card_vs_cpu(torch)
     vo_launches, k2_vo, k3_vo, vo, vo_inputs = run_vo(torch, stencil, k3)
     vo_gn_launches, vo_gn, sharded_inputs = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
-    rn_launches, k2_rn, k3_rn, rn, decode_inputs = run_real_nets(
+    rn_launches, k2_rn, k3_rn, rn, decode_inputs, net_weights = run_real_nets(
         torch, stencil, k3, Path(pkg.__file__).resolve().parent, smi)
     void_launches, k2_void, k3_void, void = run_void(torch, stencil, k3,
                                                      Path(pkg.__file__).resolve().parent, smi)
@@ -2833,6 +3175,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     s10_launches, k2_loader, k3_loader, k3_fullres, k3_day0_full, slice10 = run_slice10(
         torch, stencil, k3, Path(pkg.__file__).resolve().parent, decode_inputs, f32_decoder, smi)
+    torch.cuda.empty_cache()
+    attn_launches, k4_path, k4_checks, attention = run_attention(
+        torch, k4, net_weights, Path(pkg.__file__).resolve().parent, smi)
+    del net_weights
 
     def path_sums(rows):
         """A path's kernel numbers summed over its recorded inputs."""
@@ -2844,12 +3190,13 @@ def main() -> int:
                 "library_ms": None if None in lib else sum(lib), "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
-    def entry(name, replaces, launches, path_rows, other_rows, **extra):
+    def entry(name, replaces, launches, path_rows, other_rows, flop_per_s=F32_FLOP_PER_S,
+              **extra):
         """One kernel's line: its numbers summed over the path's recorded
         inputs (one call at each shape the path gave it)."""
         nbytes = sum(r["bytes"] for r in path_rows)
         flops = sum(r["flops"] for r in path_rows)
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, flops, flop_per_s)
         lib = [r.get("library_ms") for r in path_rows]
         dev = [r.get("device_ms") for r in path_rows]
         graph = [r.get("graph_ms") for r in path_rows]
@@ -2864,6 +3211,18 @@ def main() -> int:
                 "library_ms": None if None in lib else sum(lib),
                 **extra, "path_shapes": path_rows, "check_shapes": other_rows}
 
+    # K4 runs only where a caller asks for global "flash": no earlier path
+    earlier_k4 = {"bini_480": k1_launches["ext_attention"],
+                  "two_frame": k2_launches["ext_attention"],
+                  "two_frame_gn": tf_gn_launches["ext_attention"],
+                  "vo": vo_launches["ext_attention"], "vo_gn": vo_gn_launches["ext_attention"],
+                  "real_nets": rn_launches["ext_attention"],
+                  "void": void_launches["ext_attention"],
+                  "resume": resume_launches["ext_attention"],
+                  "sharded": sharded_launches["ext_attention"],
+                  **{p: n["ext_attention"] for p, n in s10_launches.items()}}
+    if any(earlier_k4.values()):
+        fail(f"K4 launched on a path that does not ask for it: {earlier_k4}")
     kernels = [
         entry("bini_apply", "super_primitive_tpu/ops/pallas_stencil.py:71",
               k1_launches["bini_apply"], k1_path, k1,
@@ -2908,6 +3267,10 @@ def main() -> int:
               loader_path=path_sums(k3_loader), sam_fullres_path_shapes=k3_fullres,
               sam_fullres_path=path_sums(k3_fullres), day0_full_path_shapes=k3_day0_full,
               day0_full_path=path_sums(k3_day0_full)),
+        entry("ext_attention", "super_primitive_tpu/nets/sam/image_encoder.py:249",
+              attn_launches["ext_attention"], k4_path, k4_checks, flop_per_s=BF16_FLOP_PER_S,
+              launches_by_path=earlier_k4 | {"real_net_flash_keyframe":
+                                             attn_launches["ext_attention"]}),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))
@@ -2916,6 +3279,7 @@ def main() -> int:
     print(json.dumps({"resume": resume}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"slice10": slice10}))
+    print(json.dumps({"attention": attention}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -32,9 +32,10 @@ nets.
 
 Precision: everything here is float32 except SAM in :func:`build_frontend`,
 which opts into bf16 (``SamPredictor(compute_dtype=torch.bfloat16)``): the
-ViT encoder (weights cast once, bf16 activations, tanh GELU, the explicit
-attention) and the mask decoder (weights, features, positional and prompt
-embeddings cast to bf16, tanh GELU in the upscaling head).  The prompt
+ViT encoder (weights cast once, bf16 activations, tanh GELU, the
+extended-head attention in persistent windows) and the mask decoder
+(weights, features, positional and prompt embeddings cast to bf16, tanh
+GELU in the upscaling head).  The prompt
 encoder, the logits handed to K3 and the IoU predictions are float32; the
 NNET runs in float32.  Both builders turn TF32 off for cuBLAS and cuDNN
 (``utils.numerics.float32_matmuls``), so the float32 convolutions and

@@ -11,8 +11,9 @@ the prompt encoder (one positive point and the label -1 pad point SAM
 appends when there is no box) and the mask decoder give 4 low-res mask
 logits, of which mask 0 is dropped (multimask output).  With
 ``compute_dtype=torch.bfloat16`` the encoder and the decoder run in bf16
-with tanh GELU (their weights cast once), the prompt encoder and every
-output stay float32.
+with tanh GELU (their weights cast once), the encoder lowered as the JAX
+package's bf16 predictor lowers it (extended-head attention, persistent
+windows); the prompt encoder and every output stay float32.
 
 The selection half: from (B, M, S, S) low-res mask logits and (B, M) IoU
 predictions, the full-resolution stability and area of every candidate
@@ -420,13 +421,21 @@ class SamPredictor(PromptRounds):
     the JAX package's tree, or ``nets/synth.synth_sam_state_dict``).
     ``compute_dtype``: None keeps float32 with exact GELU (the parity
     path); ``torch.bfloat16`` casts the encoder and decoder weights once
-    and runs them in bf16 with tanh GELU.  ``encoder=False``: decode only,
+    and runs them in bf16, and where ``cfg.global_attn_impl`` is "xla"
+    lowers the encoder as the JAX package's bf16 predictor does ("ext"
+    attention in every block, persistent windows, tanh GELU); a ``cfg``
+    with another global lowering ("flash": K4) runs as it is.  ``encoder=False``: decode only,
     on features from :meth:`set_features` (no image encoder is built)."""
 
     def __init__(self, params, cfg: ViTConfig = VIT_H, compute_dtype=None,
                  device: str | torch.device = "cuda", encoder: bool = True):
-        if compute_dtype is not None:
-            cfg = dataclasses.replace(cfg, gelu_approx=True)
+        if compute_dtype is not None and cfg.global_attn_impl == "xla":
+            # the JAX package's reduced-precision lowering: extended-head
+            # rel-pos in the global and windowed blocks, persistent windows
+            # and tanh GELU (same parameters; the float32 path keeps the
+            # materialised bias and the exact erf GELU)
+            cfg = dataclasses.replace(cfg, global_attn_impl="ext", windowed_attn_impl="ext",
+                                      persistent_windows=True, gelu_approx=True)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)

@@ -4,7 +4,8 @@ matplotlib, transformers or the JAX package, and importing the dataset
 loaders (the native one too), the depth completion, ``evaluate_void``, the
 odometry loop and its checkpoints, ``viz/``, ``run_sfm``,
 ``convert_traj_to_tum``, the multi-device layer ``parallel/``, the normal
-modes, the SAM predictor, the checkpoint converter and its validation and
+modes, the SAM predictor and image encoder, K4's module (``ops.attention``),
+the checkpoint converter and its validation and
 oracle modules and the day-0 rehearsal loads none of them; and
 ``chip_smoke.py`` fails without printing a result where there is no card,
 or where the package is not beside it."""
@@ -47,7 +48,7 @@ STANDALONE_MODULES = [
     "parallel.mesh", "parallel.launch", "parallel.dryrun",
     "data.native_loader", "cost.normal_modes", "cost.photometric", "image.resize",
     "nets.sam.predictor", "nets.hf_oracle", "nets.validate", "convert_checkpoints",
-    "day0_rehearsal",
+    "day0_rehearsal", "ops.attention", "nets.sam.image_encoder",
 ]
 
 
@@ -69,7 +70,7 @@ def test_module_loads_nothing_forbidden(module):
 def test_kernel_sources_are_packaged():
     csrc = REPO / "super_primitive_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {"bini_apply.cu", "bini_cg.cu", "bini_stencil.cuh",
-                                                "phase_counts.cu"}
+                                                "phase_counts.cu", "ext_attention.cu"}
     assert (REPO / "super_primitive_tpu_torch" / "data" / "csrc" / "loader.cpp").is_file()
     text = (REPO / "pyproject.toml").read_text()
     assert '"csrc/*.cu"' in text and '"csrc/*.cuh"' in text and '"csrc/*.cpp"' in text
