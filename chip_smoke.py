@@ -164,7 +164,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``K4_BF16_TOL`` of the plain version, with the plain version's,
      ``F.scaled_dot_product_attention``'s (timed here only) and the
      bound's times (bf16 at the tensor cores' 989 TFLOP/s) and each one's
-     peak memory.
+     peak memory; each row names its dtype's body (``K4_BODIES``) and its
+     TFLOP/s and share of the bound and the HGMMA / HMMA count of the
+     function it ran, the K4 line that of the whole library's SASS
+     (``cuobjdump -sass``; none, or none in a ``wgmma`` row's function,
+     fails the run).
 
 Launch counts (every kernel's, ``reset_launch_counts``) are reset just
 before the paths of phases 4, 5, 5b, 7, 7b, 8, 9, 10 (at its restore), 11b
@@ -280,6 +284,11 @@ MODE_TOL = 1e-5
 # inside)
 K4_F64_TOL = (2.0, 1e-6)
 K4_BF16_TOL = 8e-3
+# K4's body for each dtype: tensor cores (wgmma) for bf16, CUDA cores for
+# float32 (TF32 would miss K4_F64_TOL)
+K4_BODIES = {"bfloat16": "wgmma", "float32": "cuda_cores"}
+# and each body's kernel, as torch.profiler names it
+K4_KERNEL_NAMES = {"bfloat16": "ext_attention_tc", "float32": "ext_attention_kernel"}
 # the float32 "flash" encoder against the float32 "xla" one, relative to
 # the latter's largest feature
 FLASH_F32_TOL = 1e-4
@@ -2866,6 +2875,7 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
     d_v = v.shape[2]
     dtype = str(q.dtype).removeprefix("torch.")
     got = k4.ext_attention(q, k, v)
+    body = K4_BODIES[dtype]
     want = k4.ext_attention_reference(q, k, v).float()
     scale = float(want.abs().max())
     err = float((got.float() - want).abs().max()) / scale
@@ -2885,7 +2895,7 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
     dev = {}
     if nbytes * 4 >= L2_BYTES:  # device_ms cycles 3x the L2 in copies: skip the tiny shape
         dev_ms, graph_ms, timer, attempts = device_ms(
-            torch, k4.ext_attention, (q, k, v), ("ext_attention_kernel",))
+            torch, k4.ext_attention, (q, k, v), (K4_KERNEL_NAMES[dtype],))
         dev = {"device_ms": dev_ms, "graph_ms": graph_ms, "device_timer": timer,
                "timing_attempts": attempts}
     plain_ms = time_ms(torch, lambda: k4.ext_attention_reference(q, k, v), reps=3)
@@ -2893,7 +2903,10 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     flops = 2 * BH * L * L * (d_qk + d_v)
     b_ms, b_by = bound_ms(nbytes, flops, peak)
-    row = {"label": label, "shape": [BH, L, d_qk, d_v], "dtype": dtype, "max_abs_err": err,
+    kernel_ms = dev.get("device_ms", ms)
+    row = {"label": label, "shape": [BH, L, d_qk, d_v], "dtype": dtype, "body": body,
+           "tflop_per_s": flops / kernel_ms / 1e9, "bound_share": b_ms / kernel_ms,
+           "max_abs_err": err,
            "max_abs_err_of": "max|plain|", "library_err": lib_err, "err_vs_f64": f64_err,
            "ms": ms, **dev,
            "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2904,14 +2917,17 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
            "library_peak_bytes": peak_alloc_bytes(torch, library),
            "bound_ms": b_ms, "bound_by": b_by, "peak_flop_per_s": peak,
            "bytes": nbytes, "flops": flops}
-    print(f"K4 {label} {BH}x{L}x{d_qk}/{d_v} {dtype}: max err {err:.2e} of max|plain| "
+    print(f"K4 {label} {BH}x{L}x{d_qk}/{d_v} {dtype} ({body} body): max err {err:.2e} of "
+          f"max|plain| "
           f"(library {lib_err:.2e}; against float64 kernel {f64_err['kernel']:.2e}, plain "
           f"{f64_err['plain']:.2e}); kernel {ms:.3f} ms"
           + (f" (device {dev['device_ms']:.3f} ms, graph {dev['graph_ms']:.3f} ms)"
              if dev else "")
           + f", plain {plain_ms:.3f} ms, library {library_ms:.3f} ms "
           f"(backends that take it {row['library_backends']}); "
-          f"bound {b_ms:.4f} ms ({b_by}, {peak / 1e12:.0f} TFLOP/s); peak memory kernel "
+          f"bound {b_ms:.4f} ms ({b_by}, {peak / 1e12:.0f} TFLOP/s); "
+          f"{row['tflop_per_s']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the bound; "
+          f"peak memory kernel "
           f"{row['peak_bytes'] / 2**20:.1f} MiB, plain {row['plain_peak_bytes'] / 2**20:.1f} "
           f"MiB, library {row['library_peak_bytes'] / 2**20:.1f} MiB", flush=True)
     if dtype == "float32":
@@ -2924,6 +2940,40 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
     if dev and dev["device_ms"] < b_ms:
         fail(f"K4's device time at {label} is below its bound")
     return row
+
+
+def sass_counts(lib: Path) -> dict:
+    """Tensor-core instructions in a built library's SASS (``cuobjdump
+    -sass``): {"HGMMA": n, "HMMA": n, "by_function": {name: {...}}}, only
+    functions that hold any."""
+    from super_primitive_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {"HGMMA": 0, "HMMA": 0, "by_function": {}}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            continue
+        for op in ("HGMMA", "HMMA"):
+            if f" {op}." in line or f" {op} " in line:
+                counts[op] += 1
+                per = counts["by_function"].setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+                per[op] += 1
+    return counts
+
+
+def row_sass(sass: dict, row: dict) -> dict:
+    """The tensor-core instruction counts of the function a K4 row ran: the
+    bf16 body's instantiation for ceil(D_v / 16) value blocks, none for the
+    CUDA-core body."""
+    nv = -(-row["shape"][3] // 16)
+    if row["body"] != "wgmma":
+        return {"HGMMA": 0, "HMMA": 0}
+    return next((c for fn, c in sass["by_function"].items()
+                 if f"ext_attention_tcILi{nv}E" in fn), {"HGMMA": 0, "HMMA": 0})
 
 
 def encoder_with(torch, cfg, weights: dict):
@@ -3109,7 +3159,19 @@ def run_attention(torch, k4, weights: dict, pkg_dir: Path, card: str):
                                      label=label))
     del k4_inputs
     torch.cuda.empty_cache()
-    summary = {"encoders": enc_rows, "keyframes": kf, "phase_s": time.perf_counter() - t_phase}
+    from super_primitive_tpu_torch.ops import _build
+
+    sass = sass_counts(_build._library_path("ext_attention.cu"))
+    print(f"K4 SASS: {sass['HGMMA']} HGMMA, {sass['HMMA']} HMMA in "
+          f"{len(sass['by_function'])} functions", flush=True)
+    if sass["HGMMA"] + sass["HMMA"] == 0:
+        fail("K4's library holds no tensor-core instruction")
+    for row in path_rows + check_rows:
+        row["sass"] = row_sass(sass, row)
+        if row["body"] == "wgmma" and row["sass"]["HGMMA"] == 0:
+            fail(f"K4's wgmma body for {row['shape']} holds no HGMMA")
+    summary = {"encoders": enc_rows, "keyframes": kf, "k4_sass": sass,
+               "phase_s": time.perf_counter() - t_phase}
     print(f"phase 13 on {card}: {summary['phase_s']:.1f} s", flush=True)
     return path_launches, path_rows, check_rows, summary
 
@@ -3149,7 +3211,8 @@ def main() -> int:
     print(f"kernels built in {built['seconds']:.1f} s", flush=True)
     for src, log in built["log"].items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # not ptxas's C7519 notes (one a wgmma of K4's bf16 body)
+            if ("registers" in line or "spill" in line) and "C7519" not in line:
                 print(f"  {src}: {line.strip()}")
 
     k1 = check_k1(torch, bini, stencil)
@@ -3270,7 +3333,11 @@ def main() -> int:
         entry("ext_attention", "super_primitive_tpu/nets/sam/image_encoder.py:249",
               attn_launches["ext_attention"], k4_path, k4_checks, flop_per_s=BF16_FLOP_PER_S,
               launches_by_path=earlier_k4 | {"real_net_flash_keyframe":
-                                             attn_launches["ext_attention"]}),
+                                             attn_launches["ext_attention"]},
+              body=sorted({r["body"] for r in k4_path}),
+              tflop_per_s=sum(r["flops"] for r in k4_path) / 1e9
+              / sum(r.get("device_ms", r["ms"]) for r in k4_path),
+              sass={op: attention["k4_sass"][op] for op in ("HGMMA", "HMMA")}),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))

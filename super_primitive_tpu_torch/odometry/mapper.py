@@ -28,7 +28,8 @@ The GN supp refinement (``run_supp_refinement_gn``) takes a diagonal Newton
 step per segment: each point touches one scalar log-depth, so the normal
 equations are diagonal.  One forward-mode tangent (``torch.func.jvp``)
 gives every point's partial; the per-segment sums are a one-hot matmul
-(``solve.gn_mapping.segment_onehot``), a fixed order on every device.
+(``solve.gn_mapping.segment_onehot``) in float64, rounded to float32 once:
+the same float32 sums on every device and shard layout.
 
 On a window sharded over the mesh (``parallel.mesh.shard_window``) the
 points split over sp and, in ``run_mapping``, each source's targets over dp
@@ -309,9 +310,10 @@ def run_supp_refinement_gn(buffers: WindowBuffers, src_slot: int, trg_index: np.
                                       has_aux=True)
         w = 1.0 / torch.clamp(torch.abs(r0), min=1e-3)
         w = w * valid[..., None] / (3.0 * nv * cnt)
-        # the diagonal system, summed per segment in a fixed order
-        JtJ, Jtr = reduce_sum((onehot @ torch.sum(w * j * j, dim=(0, 2)),
-                               onehot @ torch.sum(w * j * r0, dim=(0, 2))), group)
+        # the diagonal system, summed per segment in float64, rounded once
+        JtJ, Jtr = (x.to(torch.float32) for x in reduce_sum(
+            (onehot @ torch.sum(w * j * j, dim=(0, 2)).to(torch.float64),
+             onehot @ torch.sum(w * j * r0, dim=(0, 2)).to(torch.float64)), group))
         ld_new = ld - Jtr / (JtJ * (1.0 + lam) + 1e-12)
         cost_new = cost_of(residuals(ld_new, zero)[0])
         improved = cost_new < cost

@@ -5,7 +5,8 @@ Port of the JAX package's ``impl="flash"`` global attention
 which hands the extended heads of :func:`nets.sam.image_encoder.extended_qk`
 to the Pallas TPU flash-attention kernel with ``sm_scale=1``.  Here that
 kernel is the CUDA C++ kernel ``csrc/ext_attention.cu``, built by ``_build``
-at first use.
+at first use: a tensor-core body (``wgmma`` with TMA) for bf16, a CUDA-core
+body for float32.
 
 It computes ``out[b] = softmax(q_ext[b] @ k_ext[b]^T) @ v[b]`` for
 q_ext, k_ext (BH, L, D_qk) and v (BH, L, D_v), bf16 or float32, with no
@@ -14,7 +15,10 @@ scores: float32 accumulation, an online softmax, v's dtype out.
 
 Dispatch is on the device of ``q_ext``: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes :func:`ext_attention_reference`.
-``launch_counts["ext_attention"]`` counts launches.
+``launch_counts["ext_attention"]`` counts launches.  The bf16 body takes
+widths that are multiples of 8 and 16-byte aligned rows: the wrapper pads
+other widths with zero lanes (exact: a zero lane adds nothing to q . k, and
+v's extra columns are sliced off), and copies a misaligned input.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from . import _build
 MAX_D_QK = 256
 MAX_D_V = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the launch's own error codes
+_LAUNCH_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
+                  -2: "libcuda refused a TMA tensor map"}
 
 launch_counts = {"ext_attention": 0}
 
@@ -54,6 +61,18 @@ def _lib():
     return lib
 
 
+def _lanes8(x: torch.Tensor) -> torch.Tensor:
+    """x with its last dimension zero-padded to a multiple of 8, in a fresh
+    (aligned) tensor where it is not one already."""
+    d = x.shape[-1]
+    d8 = -(-d // 8) * 8
+    if d8 == d and x.data_ptr() % 16 == 0:
+        return x
+    y = x.new_zeros(*x.shape[:-1], d8)
+    y[..., :d] = x
+    return y
+
+
 def ext_attention(q_ext: torch.Tensor, k_ext: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K4: (q_ext (BH, L, D_qk), k_ext (BH, L, D_qk), v (BH, L, D_v)), one
     dtype (bf16 or float32) -> (BH, L, D_v) in v's dtype."""
@@ -77,14 +96,20 @@ def ext_attention(q_ext: torch.Tensor, k_ext: torch.Tensor, v: torch.Tensor) -> 
     if not (1 <= d_qk <= MAX_D_QK and 1 <= d_v <= MAX_D_V) or BH < 1 or L < 1 \
             or BH > 65535 or BH * L * max(d_qk, d_v) >= 2**31:
         raise ValueError(f"ext_attention: unsupported BH={BH}, L={L}, D_qk={d_qk}, D_v={d_v}")
-    out = torch.empty_like(v)
+    if q_ext.dtype == torch.bfloat16:
+        q_ext, k_ext, v_in = _lanes8(q_ext), _lanes8(k_ext), _lanes8(v)
+    else:
+        v_in = v
+    out = torch.empty_like(v_in)
     lib = _lib()
     with torch.cuda.device(q_ext.device):
         err = lib.ext_attention_launch(
-            q_ext.data_ptr(), k_ext.data_ptr(), v.data_ptr(), out.data_ptr(), BH, L, d_qk, d_v,
-            _DTYPES[q_ext.dtype], torch.cuda.current_stream(q_ext.device).cuda_stream,
+            q_ext.data_ptr(), k_ext.data_ptr(), v_in.data_ptr(), out.data_ptr(), BH, L,
+            q_ext.shape[2], v_in.shape[2], _DTYPES[q_ext.dtype],
+            torch.cuda.current_stream(q_ext.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"ext_attention: kernel launch failed with CUDA error {err}")
+        raise RuntimeError("ext_attention: kernel launch failed: "
+                           + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))
     launch_counts["ext_attention"] += 1
-    return out
+    return out if v_in is v else out[..., :d_v].contiguous()

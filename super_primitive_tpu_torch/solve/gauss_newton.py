@@ -3,8 +3,9 @@
 Port of ``super_primitive_tpu/solve/gauss_newton.py``: 8 parameters (6 pose
 tangent + 2 affine) against the dense photometric residual.  The (P, C, 8)
 Jacobian comes from ``torch.func.jacfwd`` of the plain residual (the JAX
-package's ``jax.jacfwd``); JtJ and Jtr are 8x8 float32 reductions (TF32 off,
-``utils.numerics.float32_matmuls``); the damped system is solved with
+package's ``jax.jacfwd``); JtJ and Jtr are 8x8 reductions summed in float64
+and rounded to float32 once (``utils.numerics.einsum64``); the damped
+system is solved in float32 with
 ``torch.linalg.solve_ex``, which, like JAX, returns non-finite values on a
 singular matrix instead of raising, so the solve never waits for the host.
 
@@ -34,6 +35,7 @@ from ..keyframe import PointBundle
 from ..lie import se3
 from ..ops.sampling import bilinear_sample_packed, pack_bilinear_taps
 from ..parallel.mesh import reduce_sum
+from ..utils.numerics import einsum64
 from ..utils.timing import host_flag
 
 N_PAR = 8
@@ -116,9 +118,11 @@ def gn_track(bundle: PointBundle, src: ph.SourceSamples, trg_image: torch.Tensor
         J, (r0, valid) = jacfwd(res_aux, has_aux=True)(p0)     # (P, C, 8)
         w = _weights(r0, robust, huber_delta) * valid[..., None]
         Jw = J * w[..., None]
-        JtJ = torch.einsum("pci,pcj->ij", Jw, J)
-        Jtr = torch.einsum("pci,pc->i", Jw, r0)
-        return r0, *reduce_sum((JtJ, Jtr, torch.sum(torch.abs(r0))), bundle.group)
+        # JtJ and Jtr in float64 (einsum64), the cost's float32 sum carried
+        # exactly beside them: one collective, each rounded once after it
+        sums = reduce_sum((einsum64("pci,pcj->ij", Jw, J), einsum64("pci,pc->i", Jw, r0),
+                           torch.sum(torch.abs(r0)).to(torch.float64)), bundle.group)
+        return r0, *(x.to(r0.dtype) for x in sums)
 
     R, affine = R0, affine0
     cost_init = cost_of(residuals(torch.cat([zeros6, affine0]), R0)[0])

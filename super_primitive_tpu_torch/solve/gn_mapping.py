@@ -64,6 +64,7 @@ from ..ops.sampling import (
     pack_bilinear_taps,
 )
 from ..parallel.mesh import reduce_sum
+from ..utils.numerics import einsum64
 from ..utils.timing import host_flag
 
 _PROJ_EPS = 1e-6  # projection.project's z guard
@@ -225,9 +226,11 @@ def build_cmap(trg_index: np.ndarray, B: int) -> np.ndarray:
 
 
 def segment_onehot(seg_id: torch.Tensor, N: int) -> torch.Tensor:
-    """(N, P) float32 one-hot of each point's segment: ``onehot @ x`` is the
-    per-segment sum of a per-point ``x``, in a fixed order on every device."""
-    return (torch.arange(N, device=seg_id.device)[:, None] == seg_id[None, :]).to(torch.float32)
+    """(N, P) float64 one-hot of each point's segment: ``onehot @ x`` is the
+    per-segment sum of a per-point ``x`` (in float64, so that the order the
+    device's BLAS picks, and the split over shards, does not show once the
+    sum is rounded to float32; see ``utils.numerics.einsum64``)."""
+    return (torch.arange(N, device=seg_id.device)[:, None] == seg_id[None, :]).to(torch.float64)
 
 
 class _Source(NamedTuple):
@@ -288,7 +291,8 @@ def prepare_sources(buffers, trg_index: np.ndarray, trg_valid: np.ndarray,
 def _slot_blocks_factored(r0, valid, dIs, F, raw3, ea, w, use_affine):
     """Per-slot normal-equation blocks from the factors (the (P, 3, 10) J
     never exists).  Returns (H10 (T, 10, 10), g10 (T, 10), d_pt (T, P),
-    b_pt (T, P, 10), gl_pt (T, P))."""
+    b_pt (T, P, 10), gl_pt (T, P)); the sums over points H10 and g10 in
+    float64 (``einsum64``)."""
     Tv, P = r0.shape[:2]
     wdI = w[..., None] * dIs                                        # (T, P, 3, 2)
     G = torch.sum(wdI[..., :, :, None] * dIs[..., :, None, :], dim=-3)  # (T, P, 2, 2)
@@ -306,12 +310,13 @@ def _slot_blocks_factored(r0, valid, dIs, F, raw3, ea, w, use_affine):
         # J_aff is identically zero (linearize_warp's contract)
         Ar = A1 = r0.new_zeros((Tv, P, 2))
         s2 = s1 = s0 = u1 = v0 = r0.new_zeros((Tv, P))
+    s2, s1, s0, u1, v0 = (x.to(torch.float64) for x in (s2, s1, s0, u1, v0))
 
     tmp = torch.sum(G[..., :, :, None] * F[..., None, :, :], dim=-2)   # (T, P, 2, 7)
-    H77 = torch.einsum("tpki,tpkj->tij", F, tmp)
-    g7 = -torch.einsum("tpk,tpki->ti", rI, F)
+    H77 = einsum64("tpki,tpkj->tij", F, tmp)
+    g7 = -einsum64("tpk,tpki->ti", rI, F)
     Astack = torch.stack([-Ar, A1, Ar, -A1], dim=-1)                # (T, P, 2, 4)
-    H7a = -torch.einsum("tpki,tpkm->tim", F, Astack)
+    H7a = -einsum64("tpki,tpkm->tim", F, Astack)
     S2, S1, S0 = s2.sum(-1), s1.sum(-1), s0.sum(-1)
     # Haa[m, n] = sum w Jaff[m] Jaff[n], Jaff = [-er, 1, er, -1]
     Haa = torch.stack([
@@ -337,12 +342,13 @@ def _slot_blocks_factored(r0, valid, dIs, F, raw3, ea, w, use_affine):
 
 def _slot_blocks_direct(J, r0, w):
     """Per-slot normal-equation blocks from the materialised Jacobian (T, P,
-    3, 11), reduced in the 10-column basis [src pose 6 | affines 4]."""
+    3, 11), reduced in the 10-column basis [src pose 6 | affines 4]; H10 and
+    g10 in float64."""
     j_l = J[..., 6]
     Jsub = torch.cat([J[..., :6], J[..., 7:11]], dim=-1)
     Jw = Jsub * w[..., None]
-    H10 = torch.einsum("tpci,tpcj->tij", Jw, Jsub)
-    g10 = torch.einsum("tpci,tpc->ti", Jw, r0)
+    H10 = einsum64("tpci,tpcj->tij", Jw, Jsub)
+    g10 = einsum64("tpci,tpc->ti", Jw, r0)
     d_pt = torch.sum(w * j_l * j_l, dim=-1)
     b_pt = torch.sum(Jw * j_l[..., None], dim=-2)
     gl_pt = torch.sum(w * j_l * r0, dim=-1)
@@ -361,7 +367,10 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
     (M,), D (W, N), gl (W, N), Bs (W, N, Kc), cost ()): the camera block,
     camera gradient, landmark diagonal, landmark gradient, landmark-camera
     coupling in per-source block form and the current-state robust cost.
-    On a sharded window they are summed over its group."""
+    On a sharded window they are summed over its group.  Every sum over
+    points is taken in float64 and rounded to float32 once, after the sum
+    over the group: the order of the device's BLAS and the shard layout do
+    not show in the float32 result."""
     if sources is None:
         sources = prepare_sources(buffers, trg_index, trg_valid, src_valid, geo_dims,
                                   point_stride)
@@ -372,12 +381,13 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
     M = par_mask.shape[0]
     Kc = 8 + 8 * T_max
     Hp, Wp = buffers.images.shape[1:3]
-    H = torch.zeros((M, M), device=dev)
-    g_t = torch.zeros(M, device=dev)
-    cost = torch.zeros((), device=dev)
-    D = torch.zeros((W, N), device=dev)
-    gl = torch.zeros((W, N), device=dev)
-    Bs = torch.zeros((W, N, Kc), device=dev)
+    f64 = dict(device=dev, dtype=torch.float64)
+    H = torch.zeros((M, M), **f64)
+    g_t = torch.zeros(M, **f64)
+    cost = torch.zeros((), **f64)
+    D = torch.zeros((W, N), **f64)
+    gl = torch.zeros((W, N), **f64)
+    Bs = torch.zeros((W, N, Kc), **f64)
     T10 = torch.zeros((10, 16), device=dev)
     T10[:6, :6] = torch.eye(6, device=dev)
     T10[6:, 12:] = torch.eye(4, device=dev)
@@ -415,12 +425,14 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
         # 10 -> 16 columns: the target-pose block is J_t = -J_s Ad(rel^-1)
         Tmat = T10.expand(Tv, 10, 16).clone()
         Tmat[:, :6, 6:12] = -adjoint(se3.inverse(rel0))
-        m = par_mask[src.ix]                                             # (T, 16)
+        Tmat = Tmat.to(torch.float64)
+        m = par_mask[src.ix].to(torch.float64)                           # (T, 16)
         H_loc = (Tmat.transpose(-1, -2) @ H10 @ Tmat) * m[:, :, None] * m[:, None, :]
         g_loc = (Tmat.transpose(-1, -2) @ g10[..., None])[..., 0] * m
 
         # landmark reduction: one-hot segment matmul, a fixed order
-        payload = torch.cat([d_pt[..., None], gl_pt[..., None], b_pt], dim=-1)  # (T, P, 12)
+        payload = torch.cat([d_pt[..., None], gl_pt[..., None], b_pt], dim=-1).to(
+            torch.float64)                                               # (T, P, 12)
         seg = src.onehot @ payload                                       # (T, N, 12)
         D[s] = seg[..., 0].sum(0)
         gl[s] = seg[..., 1].sum(0)
@@ -435,9 +447,10 @@ def assemble(buffers, trg_index: np.ndarray, trg_valid: np.ndarray, src_valid: n
             ix = src.ix[j]
             H[ix[:, None], ix[None, :]] += H_loc[j]
             g_t[ix] += g_loc[j]
-        cost_slot = torch.sum(torch.abs(r0), dim=(-2, -1)) / (C * src.nv)
+        cost_slot = torch.sum(torch.abs(r0).to(torch.float64), dim=(-2, -1)) / (C * src.nv)
         cost = cost + torch.sum(cost_slot) / src.cnt
-    return reduce_sum((H, g_t, D, gl, Bs, cost), buffers.group)
+    return tuple(x.to(torch.float32)
+                 for x in reduce_sum((H, g_t, D, gl, Bs, cost), buffers.group))
 
 
 def solve_step(H, g_t, D, gl, Bs, lam, ld_w, par_mask, cmap):

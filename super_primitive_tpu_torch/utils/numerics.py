@@ -17,6 +17,20 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
+def einsum64(spec: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of float32 operands accumulated in float64 (a float64
+    result: round it once, after any reduction over devices).
+
+    A float32 contraction over many points (the normal equations' sums over
+    every point and channel) is summed in whatever order the device's BLAS
+    picks: torch's CPU sgemm sums such a long, narrow contraction almost in
+    sequence, 8e-6 relative on the GN track's 8x8 JtJ where XLA's reads
+    5e-7, and an ill-conditioned solve turns that into a different step.
+    In float64 the order no longer shows once the sum is rounded to float32:
+    every host, device and shard layout gives the float64 sum's rounding."""
+    return torch.einsum(spec, *(x.to(torch.float64) for x in operands))
+
+
 def float32_matmuls() -> None:
     """Keep float32 matmuls and convolutions in float32 on every device:
     TF32 off for cuBLAS and cuDNN.  The geometry, the GN normal equations

@@ -17,8 +17,11 @@ float32; inputs and weights from numpy seeds.
 - ``ext_attention`` on CPU tensors is its plain version and launches
   nothing, its plain version equals a float64 softmax in numpy, and an
   unknown lowering or device raises;
+- zero lanes padded onto q_ext, k_ext and v (as the wrapper pads the bf16
+  kernel's widths to a multiple of 8) change nothing, bit for bit;
 - K4 on the card against its plain version (``cuda`` marker: skips
-  without a card) at the tiny config's, a ragged and ViT-H's shapes.
+  without a card) at the tiny config's, a ragged and ViT-H's shapes, and
+  at the edges the bf16 body's tiles must mask.
 
 JAX is imported inside the tests that use it, so that the ``cuda`` test
 collects on a machine without it.
@@ -199,19 +202,40 @@ def test_no_kernel_for_other_devices():
         k4.ext_attention(q, q, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_lane_padding_is_exact(dtype):
+    r = np.random.default_rng(7)
+    q, k = (torch.from_numpy(r.normal(size=(3, 37, 26)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    v = torch.from_numpy(r.normal(size=(3, 37, 12)).astype(np.float32)).to(dtype)
+    pad = torch.nn.functional.pad
+    got = k4.ext_attention_reference(pad(q, (0, 6)), pad(k, (0, 6)), pad(v, (0, 4)))
+    want = k4.ext_attention_reference(q, k, v)
+    assert torch.equal(got[..., :12], want)
+    assert not got[..., 12:].any()
+
+
+# (BH, L, D_qk, D_v) of the card test: the tiny config's, a ragged and
+# ViT-H's shapes, then the edges of the bf16 body's tiles: L of 1 and 130
+# (a partial key tile, a partial query tile), D_qk of 26, 200 and 256
+# (padded lanes, a half k-step, four full boxes), D_v of 16 and 128, BH 1
+CARD_SHAPES = ((2, 16, 24, 8), (3, 1000, 208, 80), (16, 4096, 208, 80),
+               (2, 1, 208, 80), (2, 130, 208, 80), (2, 130, 26, 16), (2, 130, 200, 80),
+               (2, 130, 256, 128), (2, 257, 208, 16), (1, 300, 208, 128), (1, 4096, 208, 80))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """Run with ``python -m pytest tests/test_torch_attention.py -m cuda``
-    on a machine with a card: K4 at the tiny config's (BH 2, L 16, 16+4+4
-    / 8), a ragged (3, 1000, 208 / 80) and ViT-H's global (16, 4096, 208 /
-    80) shapes, each launch counted once.  float32: K4's distance from the
+    on a machine with a card: K4 at ``CARD_SHAPES``, each launch counted
+    once.  float32: K4's distance from the
     float64 function, relative to its max, within twice the plain
     version's plus 1e-6 (a kernel that rounds to bf16 inside lands near
     2e-3); bf16: within 8e-3 of max|plain| (two bf16 roundings)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     r = np.random.default_rng(6)
-    for BH, L, dqk, dv in ((2, 16, 24, 8), (3, 1000, 208, 80), (16, 4096, 208, 80)):
+    for BH, L, dqk, dv in CARD_SHAPES:
         q, k = (torch.from_numpy(0.3 * r.normal(size=(BH, L, dqk)).astype(np.float32)).cuda()
                 for _ in range(2))
         v = torch.from_numpy(r.normal(size=(BH, L, dv)).astype(np.float32)).cuda()
@@ -221,7 +245,7 @@ def test_kernel_matches_plain_on_card():
             got = k4.ext_attention(*a)
             torch.cuda.synchronize()
             assert k4.launch_counts["ext_attention"] == before + 1
-            assert got.dtype == dtype
+            assert got.dtype == dtype and got.shape == (BH, L, dv)
             want = k4.ext_attention_reference(*a)
             if dtype == torch.float32:
                 exact = (q.double() @ k.double().transpose(-2, -1)).softmax(-1) @ v.double()

@@ -23,9 +23,14 @@ packages.  Tolerances, each case's own:
 - ``gn_track`` from the same start: pose within 1e-4 in |log|, costs
   within relative 1e-5, and the same iteration count unless the longer
   run's extra iterations move its cost by less than the stop tolerance
-  (relative 1e-6): at the converged floor the accept test reads float32
-  noise (with L2 weights JAX rejects 16 steps in a row where the port
-  accepts a one-ulp gain and stops); ``gn_track_frame`` over two levels:
+  (relative 1e-6) plus twice JAX's final distance from the float64 floor
+  (JAX's LM run in float64 to convergence, ``float64_floor``): at the
+  converged floor the accept test reads float32 noise (with L2 weights
+  JAX rejects 16 steps in a row where the port accepts a one-ulp gain and
+  stops; with L1 weights JAX itself stops after 16, 17 or 22 iterations,
+  2.7e-6 apart in cost, when the log-depths move one ulp, and ends 2.1e-6
+  above the float64 floor, so a longer run may still gain that much:
+  ``tests/torch_diagnostics.py gn``); ``gn_track_frame`` over two levels:
   pose within 1e-4, final costs within relative 1e-5;
 - ``gn_mapping`` by cost and accuracy: final cost within relative 1e-3 of
   JAX's, pose error to the truth no worse than 1.1x JAX's (LM's damping
@@ -47,6 +52,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from float64_reference import jax_in_float64
 from test_odometry import PlaneSequence
 
 from super_primitive_tpu import keyframe as jkf
@@ -224,8 +230,7 @@ class TestWarp:
 
 # ------------------------------------------------------------------ window
 
-@pytest.fixture(scope="module")
-def window_setup():
+def make_window():
     """The window of tests/test_mapping.py in both packages: 3 keyframes
     (frames 0, 3, 6) with one supporting frame each (the next frame, at its
     true pose); all but the first keyframe's pose and log-depths perturbed."""
@@ -263,6 +268,11 @@ def window_setup():
         jw = jwin.set_supporting_slot(jw, slot, 0, supp_img, supp["T"], np.zeros(2, np.float32))
         twin.set_supporting_slot(tw, slot, 0, T(supp_img), supp["T"], np.zeros(2, np.float32))
     return jw, tw, gt_poses, ds
+
+
+@pytest.fixture(scope="module")
+def window_setup():
+    return make_window()
 
 
 def window_args(jw, num_kfs=3, mode="map", opt_supporting=False, affine=False):
@@ -338,6 +348,17 @@ class TestAssemble:
 
 # ------------------------------------------------------------------ solvers
 
+def float64_floor(jb, kf_image, trg, K, kp_logdepth, kp_base, R0, use_affine, robust):
+    """The cost JAX's ``gn_track`` converges to in float64 (stop tolerance
+    1e-12) from R0: the floor the float32 runs approach."""
+    def final_cost(jb, kf_image, trg, K, kp_logdepth, kp_base, R0):
+        src = jph.precompute_source(kf_image, jb, GEO)
+        res = jgn.gn_track(jb, src, trg, K, kp_logdepth, kp_base, R0, jnp.zeros(2), jnp.zeros(2),
+                           GEO, max_iters=200, use_affine=use_affine, robust=robust, tol=1e-12)
+        return float(res.final_cost)
+    return jax_in_float64(final_cost)(jb, kf_image, J(trg), K, kp_logdepth, kp_base, J(R0))
+
+
 class TestGNTrack:
     @pytest.mark.parametrize("robust,use_affine", [("l1", False), ("l1", True),
                                                    ("huber", False), ("none", False)])
@@ -369,7 +390,11 @@ class TestGNTrack:
             longer, n = (run_j, n_j) if n_j > n_t else (run_t, n_t)
             c_short = float(longer(min(n_j, n_t)).final_cost)
             c_long = float(longer(n).final_cost)
-            assert abs(c_short - c_long) < 1e-6 * c_long, (n_t, n_j, c_short, c_long)
+            # ... or what JAX's own stop left above the float64 floor
+            floor = float64_floor(jb, jw.images[0], trg, jw.K[0], jw.kp_logdepth[0],
+                                  jw.kp_base[0], R0, use_affine, robust)
+            slack = 2 * abs(float(rj.final_cost) - floor) + 1e-6 * c_long
+            assert abs(c_short - c_long) < slack, (n_t, n_j, c_short, c_long, floor)
         assert pose_err(rt.R, rj.R) < 1e-4
         np.testing.assert_allclose(rt.affine.numpy(), np.asarray(rj.affine), atol=1e-5)
         np.testing.assert_allclose(float(rt.initial_cost), float(rj.initial_cost), rtol=1e-5)

@@ -14,15 +14,20 @@ analytic GT depth) through the GT-depth grid stub frontend.
   gradients let a few segments' log-depths drift furthest);
 - ``ate_rmse``: equal;
 - the whole loop over 8 frames (window 3, Adam, GT init): the same keyframe
-  timestamps, every tracked pose within 1e-2 in |log| of JAX's and their
-  median within 5e-3 (the JAX run itself moves by about 2e-3 from run to
-  run on the CPU, whose threaded float32 reductions change order).
+  timestamps as JAX's; the tracked poses against JAX's loop with its
+  tracking, mapping and supp refinement in float64, within 3e-2 in |log|
+  at the largest and 2e-2 at the median (``float64_reference``: JAX's own
+  float32 loop reads up to 2.09e-2 and 1.20e-2 from it, because Adam's
+  fixed step never settles; the old bounds, 1e-2 and 5e-3 from JAX's
+  float32 loop, sat inside that noise).  The loop's solvers are held to
+  JAX one call at a time by the tests above.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from float64_reference import jax_float64_solvers, near_jax_float64
 from test_odometry import PlaneSequence
 
 from super_primitive_tpu.config import load_config as jload_config
@@ -62,6 +67,16 @@ def J(x):
 
 def pose_err(A, B):
     return float(np.linalg.norm(np.asarray(jse3.log(J(np.linalg.inv(A) @ B)))))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Many small torch ops (as in ``test_torch_gn.py``): beside the other
+    test workers, a thread pool waits more than it computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -246,9 +261,12 @@ def test_whole_loop(seq, tmp_path):
     assert sorted(to.global_kf_trajectory) == sorted(jo.global_kf_trajectory)
     assert len(to.global_kf_trajectory) >= 2 and to.num_kfs <= 3
     assert sorted(to.global_track_trajectory) == sorted(jo.global_track_trajectory)
-    errs = [pose_err(to.global_track_trajectory[k], jo.global_track_trajectory[k])
-            for k in jo.global_track_trajectory]
-    assert max(errs) < 1e-2 and np.median(errs) < 5e-3, errs
+    with jax_float64_solvers():
+        ro = JOdometry(odom_cfg(jload_config, tmp_path / "float64"), JGrid(rows=4, cols=5), seq)
+        ro.run(max_frames=LOOP_FRAMES)
+    assert sorted(ro.global_kf_trajectory) == sorted(jo.global_kf_trajectory)
+    near_jax_float64(to.global_track_trajectory, jo.global_track_trajectory,
+                     ro.global_track_trajectory)
     gt_errs = [pose_err(T, seq.poses[int(k)]) for k, T in to.global_track_trajectory.items()]
     assert np.median(gt_errs) < 0.05
     assert (tmp_path / "torch" / "traj" / "track_traj_final.json").exists()

@@ -15,10 +15,16 @@ resumed frame bridges several frames of motion).  Bounds:
 - the restored window (every ``WindowBuffers`` field) and host keyframes
   equal JAX's exactly, with the capacities of an uninterrupted run and a
   fresh ``Odometry``'s start-up state;
-- the post-restore tracks: the same frames as JAX's, every pose within
-  1e-2 in |log| of JAX's and their median within 5e-3 (the bounds of
-  ``test_whole_loop``); against the ground truth the last below 0.12 and
-  the largest below 0.2 (``tests/test_resume_viz.py``);
+- the post-restore tracks: the same frames as JAX's; with GN every pose
+  within 1e-2 in |log| of JAX's and their median within 5e-3; with Adam,
+  whose fixed-step iterates never settle, against JAX's resumed run with
+  float64 solvers within 3e-2 at the largest and 2e-2 at the median
+  (``float64_reference.near_jax_float64``, the bounds of
+  ``test_whole_loop``; on the test's frames and twelve copies with 0.1% of
+  the pixels one level up, ``tests/torch_diagnostics.py resume --seeds
+  12``, JAX's float32 run read up to 8.2e-3 from it and the port's up to
+  1.10e-2); against the ground truth the last below 0.12 and the largest
+  below 0.2 (``tests/test_resume_viz.py``);
 - a checkpoint the port writes restores JAX's window from the same
   keyframes and resumes in JAX within the same ground-truth bounds;
 - ``dump_kfs`` writes the keyframe that leaves the window;
@@ -34,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from float64_reference import jax_float64_solvers, near_jax_float64
 from test_odometry import PlaneSequence
 
 from super_primitive_tpu.config import load_config as jload_config
@@ -152,7 +159,14 @@ def resumed(request, seq, tmp_path_factory):
     to = TOdometry(resume_cfg(tload_config, tmp / "torch", solver, ckpt), TGrid(rows=4, cols=5),
                    seq, device="cpu")
     to.run()
-    return {"solver": solver, "tmp": tmp, "first": first, "ckpt": ckpt, "jax": jo, "torch": to}
+    ref = None
+    if solver == "adam":
+        with jax_float64_solvers():
+            ref = JOdometry(resume_cfg(jload_config, tmp / "float64", solver, ckpt),
+                            JGrid(rows=4, cols=5), seq)
+            ref.run()
+    return {"solver": solver, "tmp": tmp, "first": first, "ckpt": ckpt, "jax": jo, "torch": to,
+            "float64": ref}
 
 
 def test_kf_dumps_cross_load(tmp_path):
@@ -210,8 +224,11 @@ def test_post_restore_tracks_agree(resumed, seq):
     jpost, tpost = post_restore(jo, fid), post_restore(to, fid)
     assert sorted(tpost) == sorted(jpost) and len(tpost) >= 3
     assert sorted(to.global_kf_trajectory) == sorted(jo.global_kf_trajectory)
-    errs = [pose_err(tpost[k], jpost[k]) for k in jpost]
-    assert max(errs) < 1e-2 and np.median(errs) < 5e-3, errs
+    if resumed["solver"] == "adam":
+        near_jax_float64(tpost, jpost, post_restore(resumed["float64"], fid))
+    else:
+        errs = [pose_err(tpost[k], jpost[k]) for k in jpost]
+        assert max(errs) < 1e-2 and np.median(errs) < 5e-3, errs
     gt = [pose_err(tpost[k], seq.poses[int(k)]) for k in sorted(tpost, key=int)]
     assert gt[-1] < 0.12 and max(gt) < 0.2, gt
     if resumed["solver"] == "gn":

@@ -38,7 +38,11 @@ def test_profiler_trace_writes_a_trace_on_the_cpu(tmp_path):
 def test_rss_sampler_sees_an_allocation():
     with RSSSampler() as rss:
         a = np.ones(64 * 2**20 // 8)  # 64 MiB, every page written
-        time.sleep(0.05)
+        # held until the sampler's thread has read it: on a loaded host the
+        # thread can miss a fixed 50 ms window (it did in two 6-worker runs)
+        deadline = time.monotonic() + 10.0
+        while rss.peak - rss.start < 48 * 2**20 and time.monotonic() < deadline:
+            time.sleep(0.01)
         del a
     assert rss.start > 0
     assert rss.peak - rss.start >= 48 * 2**20
