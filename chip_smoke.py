@@ -6,7 +6,8 @@ NVIDIA card.
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. the card's name and power limit; build the CUDA kernels with nvcc
-     (one process per source, all at once);
+     (one process per source, all at once); after phase 13 one line gives
+     each phase's seconds and the build's;
   2. K1 (``bini_apply``) against its plain PyTorch version at three shapes;
   3. K2 (``bini_cg``) against its plain version at the VO path's crop
      buckets and N (2x32², 34x64², 14x128²), at 8x240x320, and on a q with
@@ -30,12 +31,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      path, ``gn_track``, ``assemble`` + ``solve_step``, the GN supp
      refinement and ``fused_frame_step`` within ``GN_TOL``, and two
      ``assemble`` calls on the card bit for bit;
-  7. the VO slice: ``eval.e2e_synthetic.run_e2e("adam")`` at full width on
-     the card (480x640 frames, the device SAM selection on K3, BiNI on K2,
+  7. the VO slice: ``eval.e2e_synthetic.run_e2e("adam")`` over 9 frames at
+     full width on the card (480x640, the device SAM selection on K3, BiNI on K2,
      the depth split), at least 2 keyframes and a Sim(3) ATE below 0.05;
      the share of K3's region pixels that its shortcut leaves to the full
      16-phase path on the path's inputs;
-  7b. the GN VO slice: ``run_e2e("gn")`` at full width, at least 2
+  7b. the GN VO slice: ``run_e2e("gn")`` over 12 frames at full width, at least 2
      keyframes, a Sim(3) ATE below 0.05, K2 and K3 launched, the fused step
      taken and no separate supp mapping, every pose finite; wall s, ms per
      tracked frame, the fused step's split, LM iterations, host reads per
@@ -59,12 +60,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      BiNI's recorded inputs; encoder, decode, selection and NNET times;
   9. VOID depth completion at full width on trees in the VOID, TUM and
      Replica layouts written from the planes sequence
-     (``eval/dataset_trees.py``; 1500 sparse pixels an image): (a) ``python
+     (``eval/dataset_trees.py``; 500 sparse pixels an image): (a) ``python
      -m super_primitive_tpu_torch.evaluate_void --sam-ckpt --nnet-ckpt``
      (its ``main``) with ``configs/void_dataset.yaml`` unchanged over one
      image, on ``.npz`` trees of phase 8's synthetic weights written by
      ``convert.sam_to_flax`` / ``nnet_to_flax``,
-     then a second image through ``DepthCompletion(invalid_ratio_thresh=0)``
+     then a second image, on a fifth of its sparse points
+     (``VOID_LOOSE_STRIDE``), through ``DepthCompletion(invalid_ratio_thresh=0)``
      so that the loose rerun, and with it K3's statistics path, runs; K2
      and K3 launched, no K1, every K2 field holding a plan; per image the
      wall and the stage split, K3 slabs, peak memory, both metric tables;
@@ -163,12 +165,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      plain version's distance from float64 and in bf16 within
      ``K4_BF16_TOL`` of the plain version, with the plain version's,
      ``F.scaled_dot_product_attention``'s (timed here only) and the
-     bound's times (bf16 at the tensor cores' 989 TFLOP/s) and each one's
-     peak memory; each row names its dtype's body (``K4_BODIES``) and its
-     TFLOP/s and share of the bound and the HGMMA / HMMA count of the
-     function it ran, the K4 line that of the whole library's SASS
-     (``cuobjdump -sass``; none, or none in a ``wgmma`` row's function,
-     fails the run).
+     bound's times (bf16 at the tensor cores' 989 TFLOP/s, float32 at a
+     third of their 494.7 TFLOP/s TF32 rate: the float32 body runs three
+     TF32 products for each) and each one's peak memory; each row names
+     its dtype's body (``K4_BODIES``) and its TFLOP/s and share of the
+     bound and the HGMMA / HMMA count of the function it ran, the K4 line
+     that of the whole library's SASS (``cuobjdump -sass``; none, or none
+     in a row's function, fails the run).
 
 Launch counts (every kernel's, ``reset_launch_counts``) are reset just
 before the paths of phases 4, 5, 5b, 7, 7b, 8, 9, 10 (at its restore), 11b
@@ -207,11 +210,13 @@ import time
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor-
-# core) flop/s, the type K1-K3 compute in, and the dense bf16 tensor-core
-# rate, the peak for K4's bf16 inputs.
+# core) flop/s, the type K1-K3 compute in, the dense bf16 tensor-core rate,
+# the peak for K4's bf16 inputs, and a third of the dense TF32 rate, the
+# peak for K4's float32 inputs (each product is three TF32 products, 3xTF32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32X3_FLOP_PER_S = 494.7e12 / 3
 # its L2 cache (50 MB): device times cycle through copies of the inputs
 # that together hold three times this, so every call reads from HBM
 L2_BYTES = 50 * 2**20
@@ -223,7 +228,12 @@ L2_BYTES = 50 * 2**20
 # no floor on the work an exact kernel must do; the bytes are.
 K1_FLOPS_PER_PIXEL = 17
 K2_FLOPS_PER_PIXEL_ITER = 33
+# the VO slices' frames: GN's 12 (it made 2 keyframes there); Adam's 9,
+# cut from 12 for the script's time (the sequence moves 0.0244 a frame
+# against the 0.08 keyframe threshold: keyframes at frames 3 and 7 of 0-8,
+# where 12 frames made a third at 11)
 VO_FRAMES = 12
+ADAM_VO_FRAMES = 9
 # phase 3's K2 shapes: the VO path's largest call at each crop bucket (its
 # first keyframe, round 1) and the full 240x320 integration field
 K2_CHECK_SHAPES = [(2, 32, 32), (34, 64, 64), (14, 128, 128), (8, 240, 320)]
@@ -242,12 +252,17 @@ NET_CARD_TOL = {"block": 1e-5, "decoder": 4e-6, "nnet": 1e-5}
 # float32 run's largest magnitude: about twice an H100's readings of
 # 2.5e-2 (features), 2.8e-2 (logits) and 1.2e-2 (IoU)
 BF16_TOL = {"features": 5e-2, "logits": 6e-2, "iou": 3e-2}
-# phase 9: VOID1500 density (1500 sparse pixels an image, drawn from the
-# seed), one image through evaluate_void and a second through the forced
-# loose rerun (each takes about a minute of host work, and the script must
-# stay well inside its 1200 s limit); TUM and Replica trees of 10 and 5
-# frames
-VOID_IMAGES, VOID_SPARSE, VOID_SEED = 1, 1500, 9
+# phase 9: VOID500 density (500 sparse pixels an image, drawn from the
+# seed; VOID publishes 150, 500 and 1500), one image through evaluate_void
+# and a second through the forced loose rerun; TUM and Replica trees of 10
+# and 5 frames.  Cut for the script's time: at VOID1500 the evaluate_void
+# image's loose pass took 70.6 s over 7,297 segments, its host work growing
+# with the segments the sparse points give (the structured fake read
+# AbsRel 0.0397, validity 0.997 at 500 on an H100; 0.0382, 1.0 at 1500)
+VOID_IMAGES, VOID_SPARSE, VOID_SEED = 1, 500, 9
+# the forced loose rerun's image keeps every VOID_LOOSE_STRIDE-th of its
+# sparse points (100 of 500), for the same reason
+VOID_LOOSE_STRIDE = 5
 TUM_FRAMES, REPLICA_FRAMES = 10, 5
 # phase 9c's TUM odometry run must make the three ground-truth keyframes
 # that trajectory.png needs: planes_odom.yaml's keyframe translation
@@ -284,11 +299,16 @@ MODE_TOL = 1e-5
 # inside)
 K4_F64_TOL = (2.0, 1e-6)
 K4_BF16_TOL = 8e-3
-# K4's body for each dtype: tensor cores (wgmma) for bf16, CUDA cores for
-# float32 (TF32 would miss K4_F64_TOL)
-K4_BODIES = {"bfloat16": "wgmma", "float32": "cuda_cores"}
-# and each body's kernel, as torch.profiler names it
-K4_KERNEL_NAMES = {"bfloat16": "ext_attention_tc", "float32": "ext_attention_kernel"}
+# K4's body for each dtype, both on the tensor cores: wgmma on bf16 for
+# bf16, wgmma on 3xTF32 split products for float32 (one TF32 product would
+# miss K4_F64_TOL)
+K4_BODIES = {"bfloat16": "wgmma", "float32": "wgmma_3xtf32"}
+# and each body's kernels, as torch.profiler names them: float32's pre-pass
+# (K's and V^T's TF32 halves) and main kernel
+K4_KERNEL_NAMES = {"bfloat16": ("ext_attention_tc",),
+                   "float32": ("x3::split_k", "x3::split_v", "ext_attention_x3")}
+# the function each body's SASS is counted in, for ceil(D_v / 16) value blocks
+K4_SASS_FUNCTIONS = {"wgmma": "ext_attention_tcILi{}E", "wgmma_3xtf32": "ext_attention_x3ILi{}E"}
 # the float32 "flash" encoder against the float32 "xla" one, relative to
 # the latter's largest feature
 FLASH_F32_TOL = 1e-4
@@ -299,8 +319,9 @@ K4_RAGGED = (3, 1000, 208, 80)
 K4_TINY = (2, 24, 26, 16)
 # phase 9's K2 check on a recorded call: its first segments and the ones
 # that ran the most iterations, this many of each, against the plain
-# version, which solves one segment at a time
-K2_VOID_SLICE = 8
+# version, which solves one segment at a time (2000 iterations took 17.3 s
+# for 15 segments at 240x320: cut from 8 for the script's time)
+K2_VOID_SLICE = 4
 
 
 def reset_launch_counts():
@@ -708,8 +729,13 @@ def k2_void_row(torch, stencil, args, label: str) -> dict:
     max_iter, tol = args[8:]
     N, H, W = b.shape
     plan = stencil.cg_plan(H, W)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
     x_k, it_k = stencil.bini_cg(*args)
-    ms = time_ms(torch, lambda: stencil.bini_cg(*args), reps=3)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)  # the call took seconds: once is enough
     most = it_k.argsort(descending=True)[:K2_VOID_SLICE].tolist()
     idx = sorted(set(range(min(K2_VOID_SLICE, N))) | set(most))
     sel = torch.tensor(idx, device=b.device)
@@ -1280,7 +1306,7 @@ def run_vo(torch, stencil, k3):
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
             first_inputs(torch, k3, "phase_counts") as k3_inputs:
         reset_launch_counts()
-        r = run_e2e("adam", frames=VO_FRAMES, device="cuda",
+        r = run_e2e("adam", frames=ADAM_VO_FRAMES, device="cuda",
                     save_path=str(Path("build") / "chip_smoke" / "vo"))
         launches = launch_counts()
     timer, ate = r["timer"], r["ate"]["rmse"]
@@ -1789,14 +1815,16 @@ def loader_config_file(pkg_dir: Path, out: Path, name: str, base: str, dataset: 
     return path
 
 
-def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -> dict:
+def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: dict,
+                  card: str) -> dict:
     """Phase 9a: ``evaluate_void --sam-ckpt --nnet-ckpt`` on the VOID config
-    unchanged over the first images of the tree, then one more image through
+    unchanged over the first images of the tree, then one more image, on
+    every ``VOID_LOOSE_STRIDE``-th of its sparse points, through
     ``DepthCompletion(invalid_ratio_thresh=0.0)``, so that the loose rerun
     and with it K3's statistics path run.  The weights are phase 8's
-    frontend's (at a trained net's scale, random SAM weights leave no
-    candidate stable at the config's 0.9).  Records K2's and K3's
-    inputs."""
+    frontend's (``weights``, phase 8's synthetic state dicts; at a trained
+    net's scale, random SAM weights leave no candidate stable at the
+    config's 0.9).  Records K2's and K3's inputs."""
     import numpy as np
 
     from super_primitive_tpu_torch import evaluate_void
@@ -1804,12 +1832,11 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
     from super_primitive_tpu_torch.data.void import VoidDataset
     from super_primitive_tpu_torch.depth_completion.completion import DepthCompletion
     from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
-    from super_primitive_tpu_torch.nets.synth import synth_nnet_state_dict, synth_sam_state_dict
     from super_primitive_tpu_torch.utils.timing import StageTimer
 
     t0 = time.perf_counter()
-    save_npz_tree(work / "sam.npz", sam_to_flax(synth_sam_state_dict(VIT_H), depth=VIT_H.depth))
-    save_npz_tree(work / "nnet.npz", nnet_to_flax(synth_nnet_state_dict()))
+    save_npz_tree(work / "sam.npz", sam_to_flax(weights["sam"], depth=VIT_H.depth))
+    save_npz_tree(work / "nnet.npz", nnet_to_flax(weights["nnet"]))
     trees_s = time.perf_counter() - t0
     cfg_path = pkg_dir / "configs" / "void_dataset.yaml"
     torch.cuda.reset_peak_memory_stats()
@@ -1828,6 +1855,11 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
                "k3_slabs": slabs["n"], "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
         fe = res["completion"].frontend
         sample = VoidDataset(str(work / "void"))[VOID_IMAGES]
+        sparse = np.asarray(sample["sparse_depth"], np.float32).copy()
+        rows, cols = np.nonzero(sparse > 1e-6)
+        drop = np.ones(len(rows), bool)
+        drop[::VOID_LOOSE_STRIDE] = False
+        sparse[rows[drop], cols[drop]] = 0.0
         dc = DepthCompletion(fe, invalid_ratio_thresh=0.0)
         fe.timer = dc.timer = StageTimer("cuda")
         before = launch_counts()
@@ -1835,12 +1867,12 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
         torch.cuda.reset_peak_memory_stats()
         with stats_path_counts(fe.mask_predict_fn.predictor, k3) as stats:
             t0 = time.perf_counter()
-            depths, invalid = dc.depth_completion(sample["image"], sample["intrinsics"],
-                                                  sample["sparse_depth"])
+            depths, invalid = dc.depth_completion(sample["image"], sample["intrinsics"], sparse)
             torch.cuda.synchronize()
             loose_s = time.perf_counter() - t0
         launches = launch_counts()
-    loose = {"wall_s": loose_s, "segments": list(dc.segments),
+    loose = {"wall_s": loose_s, "sparse_points": int((sparse > 1e-6).sum()),
+             "segments": list(dc.segments),
              "stage_s": {k: round(v, 4) for k, v in fe.timer.totals.items()},
              "launches": {k: launches[k] - before[k] for k in launches},
              "k3_slabs": slabs["n"] - slabs0, "stats_path": stats,
@@ -1849,7 +1881,8 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str)
     for name, run in (("evaluate_void", cli), ("loose image", loose)):
         print(f"VOID real nets on {card}, {name}: launches {run['launches']}, K3 slabs "
               f"{run['k3_slabs']}, peak memory {run['peak_GiB']:.2f} GiB", flush=True)
-    print(f"VOID real nets, loose image: wall {loose_s:.2f} s, (segments, visible) per pass "
+    print(f"VOID real nets, loose image: wall {loose_s:.2f} s, {loose['sparse_points']} sparse "
+          f"points, (segments, visible) per pass "
           f"{dc.segments}, statistics path {stats}, "
           f"validity {loose['validity_rate']:.3f}, stage seconds {json.dumps(loose['stage_s'])}",
           flush=True)
@@ -2050,7 +2083,7 @@ def run_loaders(torch, stencil, k3, pkg_dir: Path, work: Path, seq, card: str) -
     return out
 
 
-def run_void(torch, stencil, k3, pkg_dir: Path, card: str):
+def run_void(torch, stencil, k3, pkg_dir: Path, weights: dict, card: str):
     """Phase 9: VOID depth completion at full width (9a real nets, 9b the
     structured fake) and the TUM, Replica and VOID loaders (9c); then K2
     against its plain version on slices of the VOID path's largest and
@@ -2068,7 +2101,7 @@ def run_void(torch, stencil, k3, pkg_dir: Path, card: str):
     seq = PlanesSequence(n_frames=max(TUM_FRAMES, REPLICA_FRAMES, VOID_IMAGES + 1), H=480,
                          W=640)
     write_void_tree(work / "void", seq, VOID_IMAGES + 1, n_sparse=VOID_SPARSE, seed=VOID_SEED)
-    real, recorded = run_void_real(torch, stencil, k3, pkg_dir, work, seq, card)
+    real, recorded = run_void_real(torch, stencil, k3, pkg_dir, work, seq, weights, card)
     torch.cuda.empty_cache()
     k2_rows = [k2_void_row(torch, stencil, args, label) for label, args in recorded["bini_cg"]]
     k3_rows = [k3_row(torch, k3, *args) for args in recorded["phase_counts"]]
@@ -2711,8 +2744,12 @@ def tree_mismatch(got, want, path: str = "") -> list[str]:
             return [path or "/"]
         return [p for k in want for p in tree_mismatch(got[k], want[k], f"{path}/{k}")]
     got, want = np.asarray(got), np.asarray(want)
+
+    def raw(x):  # the bytes, as a view where x is contiguous (no copy)
+        return np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+
     same = (got.dtype == want.dtype and got.shape == want.shape
-            and got.tobytes() == want.tobytes())
+            and np.array_equal(raw(got), raw(want)))
     return [] if same else [path]
 
 
@@ -2895,12 +2932,12 @@ def k4_row(torch, k4, q, k, v, label: str) -> dict:
     dev = {}
     if nbytes * 4 >= L2_BYTES:  # device_ms cycles 3x the L2 in copies: skip the tiny shape
         dev_ms, graph_ms, timer, attempts = device_ms(
-            torch, k4.ext_attention, (q, k, v), (K4_KERNEL_NAMES[dtype],))
+            torch, k4.ext_attention, (q, k, v), K4_KERNEL_NAMES[dtype])
         dev = {"device_ms": dev_ms, "graph_ms": graph_ms, "device_timer": timer,
                "timing_attempts": attempts}
     plain_ms = time_ms(torch, lambda: k4.ext_attention_reference(q, k, v), reps=3)
     library_ms = time_ms(torch, library, reps=5)
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else TF32X3_FLOP_PER_S
     flops = 2 * BH * L * L * (d_qk + d_v)
     b_ms, b_by = bound_ms(nbytes, flops, peak)
     kernel_ms = dev.get("device_ms", ms)
@@ -2966,14 +3003,11 @@ def sass_counts(lib: Path) -> dict:
 
 
 def row_sass(sass: dict, row: dict) -> dict:
-    """The tensor-core instruction counts of the function a K4 row ran: the
-    bf16 body's instantiation for ceil(D_v / 16) value blocks, none for the
-    CUDA-core body."""
-    nv = -(-row["shape"][3] // 16)
-    if row["body"] != "wgmma":
-        return {"HGMMA": 0, "HMMA": 0}
-    return next((c for fn, c in sass["by_function"].items()
-                 if f"ext_attention_tcILi{nv}E" in fn), {"HGMMA": 0, "HMMA": 0})
+    """The tensor-core instruction counts of the function a K4 row ran: its
+    dtype's body's instantiation for ceil(D_v / 16) value blocks."""
+    name = K4_SASS_FUNCTIONS[row["body"]].format(-(-row["shape"][3] // 16))
+    return next((c for fn, c in sass["by_function"].items() if name in fn),
+                {"HGMMA": 0, "HMMA": 0})
 
 
 def encoder_with(torch, cfg, weights: dict):
@@ -3168,8 +3202,8 @@ def run_attention(torch, k4, weights: dict, pkg_dir: Path, card: str):
         fail("K4's library holds no tensor-core instruction")
     for row in path_rows + check_rows:
         row["sass"] = row_sass(sass, row)
-        if row["body"] == "wgmma" and row["sass"]["HGMMA"] == 0:
-            fail(f"K4's wgmma body for {row['shape']} holds no HGMMA")
+        if row["sass"]["HGMMA"] == 0:
+            fail(f"K4's {row['body']} body for {row['shape']} holds no HGMMA")
     summary = {"encoders": enc_rows, "keyframes": kf, "k4_sass": sass,
                "phase_s": time.perf_counter() - t_phase}
     print(f"phase 13 on {card}: {summary['phase_s']:.1f} s", flush=True)
@@ -3207,7 +3241,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     require_device("cuda")
+    t_start = time.perf_counter()
     built = _build.build_all()
+    phase_s = {"build": built["seconds"]}
+
+    def phase(name, fn, *args):
+        """fn(*args), its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     print(f"kernels built in {built['seconds']:.1f} s", flush=True)
     for src, log in built["log"].items():
         for line in log.splitlines():
@@ -3215,33 +3259,40 @@ def main() -> int:
             if ("registers" in line or "spill" in line) and "C7519" not in line:
                 print(f"  {src}: {line.strip()}")
 
-    k1 = check_k1(torch, bini, stencil)
-    k2 = check_k2(torch, bini, stencil)
-    k3_checks = check_k3(torch, k3)
-    k1_launches, k1_path = check_bini_480(torch, bini, stencil)
-    k2_launches, k2_path, adam_slice = run_slice(torch, stencil)
-    tf_gn_launches, tf_gn = run_slice_gn(torch, stencil, k3, adam_slice)
-    small_input_agreement(torch)
-    gn_small = gn_card_vs_cpu(torch)
-    vo_launches, k2_vo, k3_vo, vo, vo_inputs = run_vo(torch, stencil, k3)
-    vo_gn_launches, vo_gn, sharded_inputs = run_vo_gn(torch, stencil, k3, vo, vo_inputs)
-    rn_launches, k2_rn, k3_rn, rn, decode_inputs, net_weights = run_real_nets(
-        torch, stencil, k3, Path(pkg.__file__).resolve().parent, smi)
-    void_launches, k2_void, k3_void, void = run_void(torch, stencil, k3,
-                                                     Path(pkg.__file__).resolve().parent, smi)
+    pkg_dir = Path(pkg.__file__).resolve().parent
+    k1 = phase("2_k1", check_k1, torch, bini, stencil)
+    k2 = phase("3_k2", check_k2, torch, bini, stencil)
+    k3_checks = phase("3b_k3", check_k3, torch, k3)
+    k1_launches, k1_path = phase("4_bini_480", check_bini_480, torch, bini, stencil)
+    k2_launches, k2_path, adam_slice = phase("5_two_frame", run_slice, torch, stencil)
+    tf_gn_launches, tf_gn = phase("5b_two_frame_gn", run_slice_gn, torch, stencil, k3,
+                                  adam_slice)
+    phase("6_small_inputs", small_input_agreement, torch)
+    gn_small = phase("6_gn_card_vs_cpu", gn_card_vs_cpu, torch)
+    vo_launches, k2_vo, k3_vo, vo, vo_inputs = phase("7_vo", run_vo, torch, stencil, k3)
+    vo_gn_launches, vo_gn, sharded_inputs = phase("7b_vo_gn", run_vo_gn, torch, stencil, k3,
+                                                  vo, vo_inputs)
+    rn_launches, k2_rn, k3_rn, rn, decode_inputs, net_weights = phase(
+        "8_real_nets", run_real_nets, torch, stencil, k3, pkg_dir, smi)
+    void_launches, k2_void, k3_void, void = phase("9_void", run_void, torch, stencil, k3,
+                                                  pkg_dir, net_weights, smi)
     torch.cuda.empty_cache()
-    resume_launches, resume = run_resume(torch, stencil, k3, smi)
+    resume_launches, resume = phase("10_resume", run_resume, torch, stencil, k3, smi)
     torch.cuda.empty_cache()
     f32_decoder = decode_inputs.pop("state_dict_f32")
-    sharded_launches, k2_sh, k3_sh, sharded = run_sharded(
-        torch, stencil, k3, sharded_inputs["gn"], sharded_inputs["bini"], decode_inputs, smi)
+    sharded_launches, k2_sh, k3_sh, sharded = phase(
+        "11_sharded", run_sharded, torch, stencil, k3, sharded_inputs["gn"],
+        sharded_inputs["bini"], decode_inputs, smi)
     torch.cuda.empty_cache()
-    s10_launches, k2_loader, k3_loader, k3_fullres, k3_day0_full, slice10 = run_slice10(
-        torch, stencil, k3, Path(pkg.__file__).resolve().parent, decode_inputs, f32_decoder, smi)
+    s10_launches, k2_loader, k3_loader, k3_fullres, k3_day0_full, slice10 = phase(
+        "12_slice10", run_slice10, torch, stencil, k3, pkg_dir, decode_inputs, f32_decoder, smi)
     torch.cuda.empty_cache()
-    attn_launches, k4_path, k4_checks, attention = run_attention(
-        torch, k4, net_weights, Path(pkg.__file__).resolve().parent, smi)
+    attn_launches, k4_path, k4_checks, attention = phase(
+        "13_attention", run_attention, torch, k4, net_weights, pkg_dir, smi)
     del net_weights
+    phase_s["total"] = time.perf_counter() - t_start
+    print(f"phase seconds on {smi}: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
+          flush=True)
 
     def path_sums(rows):
         """A path's kernel numbers summed over its recorded inputs."""

@@ -5,8 +5,9 @@ Port of the JAX package's ``impl="flash"`` global attention
 which hands the extended heads of :func:`nets.sam.image_encoder.extended_qk`
 to the Pallas TPU flash-attention kernel with ``sm_scale=1``.  Here that
 kernel is the CUDA C++ kernel ``csrc/ext_attention.cu``, built by ``_build``
-at first use: a tensor-core body (``wgmma`` with TMA) for bf16, a CUDA-core
-body for float32.
+at first use: two tensor-core bodies (``wgmma`` with TMA), bf16 products
+for bf16 and 3xTF32 split products for float32, whose pre-pass writes K's
+and V^T's TF32 halves into a scratch buffer the wrapper allocates.
 
 It computes ``out[b] = softmax(q_ext[b] @ k_ext[b]^T) @ v[b]`` for
 q_ext, k_ext (BH, L, D_qk) and v (BH, L, D_v), bf16 or float32, with no
@@ -15,10 +16,11 @@ scores: float32 accumulation, an online softmax, v's dtype out.
 
 Dispatch is on the device of ``q_ext``: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes :func:`ext_attention_reference`.
-``launch_counts["ext_attention"]`` counts launches.  The bf16 body takes
-widths that are multiples of 8 and 16-byte aligned rows: the wrapper pads
-other widths with zero lanes (exact: a zero lane adds nothing to q . k, and
-v's extra columns are sliced off), and copies a misaligned input.
+``launch_counts["ext_attention"]`` counts launches.  The kernel takes
+q_ext and k_ext widths that are multiples of 4 (float32) or 8 (bf16, with
+v's) and 16-byte aligned rows: the wrapper pads other widths with zero
+lanes (exact: a zero lane adds nothing to q . k, and v's extra columns are
+sliced off), and copies a misaligned input.
 """
 
 from __future__ import annotations
@@ -55,20 +57,22 @@ def _lib():
     lib = _build.library("ext_attention.cu")
     if not getattr(lib, "_typed", False):
         _I, _P = ctypes.c_int, ctypes.c_void_p
-        lib.ext_attention_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.ext_attention_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
         lib.ext_attention_launch.restype = _I
+        lib.ext_attention_scratch_floats.argtypes = [_I, _I, _I, _I, _I]
+        lib.ext_attention_scratch_floats.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
 
-def _lanes8(x: torch.Tensor) -> torch.Tensor:
-    """x with its last dimension zero-padded to a multiple of 8, in a fresh
+def _lanes(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x with its last dimension zero-padded to a multiple of n, in a fresh
     (aligned) tensor where it is not one already."""
     d = x.shape[-1]
-    d8 = -(-d // 8) * 8
-    if d8 == d and x.data_ptr() % 16 == 0:
+    dn = -(-d // n) * n
+    if dn == d and x.data_ptr() % 16 == 0:
         return x
-    y = x.new_zeros(*x.shape[:-1], d8)
+    y = x.new_zeros(*x.shape[:-1], dn)
     y[..., :d] = x
     return y
 
@@ -97,15 +101,20 @@ def ext_attention(q_ext: torch.Tensor, k_ext: torch.Tensor, v: torch.Tensor) -> 
             or BH > 65535 or BH * L * max(d_qk, d_v) >= 2**31:
         raise ValueError(f"ext_attention: unsupported BH={BH}, L={L}, D_qk={d_qk}, D_v={d_v}")
     if q_ext.dtype == torch.bfloat16:
-        q_ext, k_ext, v_in = _lanes8(q_ext), _lanes8(k_ext), _lanes8(v)
+        q_ext, k_ext, v_in = _lanes(q_ext, 8), _lanes(k_ext, 8), _lanes(v, 8)
     else:
-        v_in = v
+        q_ext, k_ext, v_in = _lanes(q_ext, 4), _lanes(k_ext, 4), v
     out = torch.empty_like(v_in)
     lib = _lib()
+    dtype = _DTYPES[q_ext.dtype]
+    n_scratch = lib.ext_attention_scratch_floats(BH, L, q_ext.shape[2], v_in.shape[2], dtype)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q_ext.device) \
+        if n_scratch else None
     with torch.cuda.device(q_ext.device):
         err = lib.ext_attention_launch(
             q_ext.data_ptr(), k_ext.data_ptr(), v_in.data_ptr(), out.data_ptr(), BH, L,
-            q_ext.shape[2], v_in.shape[2], _DTYPES[q_ext.dtype],
+            q_ext.shape[2], v_in.shape[2], dtype,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(q_ext.device).cuda_stream,
         )
     if err:

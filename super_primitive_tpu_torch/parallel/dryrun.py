@@ -70,7 +70,7 @@ def _par_mask(masks, device) -> torch.Tensor:
 
 # -------------------------------------------------------------------- flows
 
-def flow_adam(mesh, buffers, slots, masks, geo_dims, max_iters: int, device="cpu") -> dict:
+def flow_adam(mesh, buffers, slots, masks, geo_dims, max_iters: int, device="cuda") -> dict:
     """``mapper.run_mapping`` (retraction Adam, the scheduled map's rates,
     no early stop) with targets over dp and points over sp."""
     b = _placed(buffers, mesh, device)
@@ -82,7 +82,7 @@ def flow_adam(mesh, buffers, slots, masks, geo_dims, max_iters: int, device="cpu
 
 
 def flow_assemble(mesh, buffers, slots, masks, geo_dims, use_affine: bool = False,
-                  point_stride: int = 1, device="cpu") -> dict:
+                  point_stride: int = 1, device="cuda") -> dict:
     """One ``gn_mapping.assemble`` of the window's problem, points over sp."""
     b = _placed(buffers, mesh, device)
     lin = gm.assemble(b, slots.trg_index, slots.trg_valid, slots.src_valid,
@@ -91,7 +91,7 @@ def flow_assemble(mesh, buffers, slots, masks, geo_dims, use_affine: bool = Fals
     return {"lin": lin, "replicated": _replicated(mesh, lin)}
 
 
-def flow_gn_mapping(mesh, buffers, slots, masks, geo_dims, device="cpu", **kw) -> dict:
+def flow_gn_mapping(mesh, buffers, slots, masks, geo_dims, device="cuda", **kw) -> dict:
     """A ``gn_mapping`` solve, points over sp; ``kw`` are its options."""
     b = _placed(buffers, mesh, device)
     r = gm.gn_mapping(b, slots.trg_index, slots.trg_valid, slots.src_valid, masks.xi_mask,
@@ -103,7 +103,7 @@ def flow_gn_mapping(mesh, buffers, slots, masks, geo_dims, device="cpu", **kw) -
             "num_iters": r.num_iters, "replicated": _replicated(mesh, out)}
 
 
-def flow_fused(mesh, buffers, step: dict, device="cpu") -> dict:
+def flow_fused(mesh, buffers, step: dict, device="cuda") -> dict:
     """``fused_frame_step`` on the window, points over sp.  ``step`` holds
     its other arguments (host data; tensors move to the device)."""
     b = _placed(buffers, mesh, device)
@@ -117,7 +117,7 @@ def flow_fused(mesh, buffers, step: dict, device="cpu") -> dict:
             "replicated": _replicated(mesh, (packed.to(dev), r.kp_logdepth, iters))}
 
 
-def flow_encode(mesh, state_dict, cfg, images, device="cpu") -> dict:
+def flow_encode(mesh, state_dict, cfg, images, device="cuda") -> dict:
     """``SamPredictor.encode_batch`` (float32) with the image batch over dp."""
     dev = _device(mesh, device)
     pred = SamPredictor(state_dict, cfg, device=dev)
@@ -126,7 +126,7 @@ def flow_encode(mesh, state_dict, cfg, images, device="cpu") -> dict:
 
 
 def flow_decode(mesh, state_dict, cfg, features, input_hw, pts, out_size: int,
-                compute_dtype=None, counts: bool = True, device="cpu") -> dict:
+                compute_dtype=None, counts: bool = True, device="cuda") -> dict:
     """``SamPredictor._decode_select`` on ``features`` with the prompts over
     every rank, the IoU and stability filters off (every candidate is
     good, the smallest by K3's area is picked); with ``counts``, K3's (hi,
@@ -151,7 +151,7 @@ def flow_decode(mesh, state_dict, cfg, features, input_hw, pts, out_size: int,
 
 
 def flow_bini(mesh, normals, masks, K, config: BiniConfig, crop: int | None = None,
-              return_crops: bool = False, device="cpu") -> dict:
+              return_crops: bool = False, device="cuda") -> dict:
     """BiNI with the segments over sp (``integrate_normals_cropped`` when
     ``crop`` is set)."""
     dev = _device(mesh, device)
@@ -165,7 +165,7 @@ def flow_bini(mesh, normals, masks, K, config: BiniConfig, crop: int | None = No
     return {"out": tuple(out), "replicated": _replicated(mesh, tuple(out))}
 
 
-def flow_cc(mesh, masks, device="cpu") -> dict:
+def flow_cc(mesh, masks, device="cuda") -> dict:
     """The CC labeller with the masks over sp."""
     dev = _device(mesh, device)
     labels = label_components(masks.to(dev), group=None if mesh is None else mesh.sp)
@@ -177,7 +177,7 @@ FLOWS = {"adam": flow_adam, "assemble": flow_assemble, "gn_mapping": flow_gn_map
          "bini": flow_bini, "cc": flow_cc}
 
 
-def run_flows(mesh, jobs, device="cpu") -> list:
+def run_flows(mesh, jobs, device="cuda") -> list:
     """Run ``jobs``, a list of (flow name, keyword arguments), in order; each
     output carries its wall ``seconds`` (the device synchronised)."""
     outs = []

@@ -215,6 +215,67 @@ def test_zero_lane_padding_is_exact(dtype):
     assert not got[..., 12:].any()
 
 
+# K4's float32 check: its distance from the float64 function, relative to
+# the latter's max, within K4_F64_TOL = (factor, floor) of the plain
+# version's: factor x plain + floor (chip_smoke.py holds the card to it)
+K4_F64_TOL = (2.0, 1e-6)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: the low 13 mantissa
+    bits dropped, to nearest with ties away from zero (on the int32 view,
+    the magnitude is the low 31 bits whatever the sign)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _emulated_k4(q, k, v, products: int) -> torch.Tensor:
+    """K4's float32 arithmetic on the CPU: both products from TF32 halves,
+    3 products (hi lo + lo hi, then hi hi: the kernel's 3xTF32) or 1 (hi
+    hi: plain TF32), each summed in float32; softmax in float32."""
+    def mm(a, b):
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        if products == 1:
+            return ah @ bh
+        return (ah @ bl + al @ bh) + ah @ bh
+    p = mm(q, k.transpose(-2, -1).contiguous()).softmax(dim=-1)
+    return mm(p, v)
+
+
+def test_tf32_rounding_emulates_cvt_rna():
+    """Ties go away from zero, either sign; below a tie goes down; the
+    halves of 1/3 add up to it within 2^-22."""
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-11 - 2**-23, 0.0])
+    want = torch.tensor([1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    hi, lo = _split(torch.tensor([1 / 3], dtype=torch.float32))
+    assert abs(float(hi.double() + lo.double()) - float(np.float32(1 / 3))) <= 2**-22 / 3
+
+
+@pytest.mark.parametrize("products,passes", [(3, True), (1, False)])
+def test_split_products_meet_the_float64_check(products, passes):
+    """The 3xTF32 split of both products at ViT-H's widths (208 / 80; BH and
+    L cut to 1 x 1024) stays within K4_F64_TOL of the plain version's
+    distance from float64; one TF32 product does not, so the check can
+    fail."""
+    r = np.random.default_rng(15)
+    q, k = (torch.from_numpy(0.3 * r.normal(size=(1, 1024, 208)).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(r.normal(size=(1, 1024, 80)).astype(np.float32))
+    exact = (q.double() @ k.double().transpose(-2, -1)).softmax(-1) @ v.double()
+    scale = exact.abs().max()
+    got = _emulated_k4(q, k, v, products)
+    err, plain = (float((t.double() - exact).abs().max() / scale)
+                  for t in (got, k4.ext_attention_reference(q, k, v)))
+    factor, floor = K4_F64_TOL
+    assert (err <= factor * plain + floor) == passes, (products, err, plain)
+
+
 # (BH, L, D_qk, D_v) of the card test: the tiny config's, a ragged and
 # ViT-H's shapes, then the edges of the bf16 body's tiles: L of 1 and 130
 # (a partial key tile, a partial query tile), D_qk of 26, 200 and 256
@@ -252,7 +313,8 @@ def test_kernel_matches_plain_on_card():
                 scale = exact.abs().max()
                 err, plain_err = (float((t.double() - exact).abs().max() / scale)
                                   for t in (got, want))
-                assert err <= 2 * plain_err + 1e-6, (BH, L, dqk, dv, err, plain_err)
+                factor, floor = K4_F64_TOL
+                assert err <= factor * plain_err + floor, (BH, L, dqk, dv, err, plain_err)
             else:
                 want = want.float()
                 err = float((got.float() - want).abs().max() / want.abs().max())

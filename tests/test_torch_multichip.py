@@ -21,12 +21,15 @@ same flows unsharded.  Bounds, the JAX package's own in
 
 Every rank holds every flow's output bit for bit (asserted inside the
 ranks and again here), and takes the same number of LM iterations.  The
+flows and ``run_flows`` default to the card, as the port's other entry
+points do: without a card and without a mesh or a device they raise.  The
 sharded ``assemble``, BiNI and CC are also held against the JAX package's
 unsharded functions on the same inputs, with the bounds that
 ``tests/test_torch_gn.py`` and ``tests/test_torch_bini.py`` hold the
 unsharded port to.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -303,6 +306,23 @@ def test_launch_refuses_what_it_cannot_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch.run(dryrun.run_flows, 1, "gloo", "cuda", args=([],))
+
+
+@pytest.mark.parametrize("name", [*dryrun.FLOWS, "run_flows"])
+def test_flows_default_to_the_card(name):
+    """Every flow and ``run_flows`` runs on the card unless the caller asks
+    for the CPU: with no mesh and no device on a machine without a card,
+    the CC flow (alone and through ``run_flows``) raises instead of running
+    on the CPU."""
+    fn = dryrun.run_flows if name == "run_flows" else dryrun.FLOWS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if name in ("cc", "run_flows") and not torch.cuda.is_available():
+        masks = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 8, 8)) > 0.5)
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            if name == "cc":
+                dryrun.flow_cc(None, masks)
+            else:
+                dryrun.run_flows(None, [("cc", {"masks": masks})])
 
 
 def test_dryrun_cli():
