@@ -18,12 +18,11 @@ numpy, as the JAX class returns.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..odometry.depth_init import segment_based_depth_reinit
+from ..utils import timing
 
 
 def render_depth_avg(depths: torch.Tensor):
@@ -40,10 +39,6 @@ def render_depth_avg(depths: torch.Tensor):
     return (d.sum(dim=0).to(torch.float64) / count).to(torch.float32), invalid
 
 
-def _stage(timer, name):
-    return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
-
 def infer_depth(frontend, image, keypoints_norm, K, sparse_depth, rerun=False, timer=None,
                 segments=None):
     """One completion pass: the frontend's keyframe for the prompts
@@ -55,13 +50,13 @@ def infer_depth(frontend, image, keypoints_norm, K, sparse_depth, rerun=False, t
     regions = kf["regions"]
     logdepth = kf["logdepth_perseg"]
     kp_rc = kf["keypoints_rc"]
-    with _stage(timer, "depth_reinit"):
+    with timing.span(timer, "depth_reinit"):
         kp_logdepth, visible = segment_based_depth_reinit(
             sparse_depth, regions, logdepth, kp_rc, mode="median", return_info=True)
         shift = kp_logdepth - logdepth[np.arange(len(kp_rc)), kp_rc[:, 0], kp_rc[:, 1]]
     if segments is not None:
         segments.append((int(regions.shape[0]), int(visible.sum())))
-    with _stage(timer, "render_avg"):
+    with timing.span(timer, "render_avg"):
         device = frontend.device
         idx = np.nonzero(visible)[0]
         ld = torch.from_numpy(np.ascontiguousarray(logdepth[idx])).to(device)
@@ -97,12 +92,12 @@ class DepthCompletion:
         self.segments = []
         depths, invalid = infer_depth(self.frontend, image, keypoints_norm, K, sparse_depth,
                                       timer=self.timer, segments=self.segments)
-        invalid_ratio = float(invalid.sum()) / invalid.numel()
+        invalid_ratio = float(timing.to_host(invalid.sum())) / invalid.numel()
         if invalid_ratio > self.invalid_ratio_thresh:
-            with _stage(self.timer, "loose_rerun"):
+            with timing.span(self.timer, "loose_rerun"):
                 depths_new, invalid_new = infer_depth(
                     self.frontend, image, keypoints_norm, K, sparse_depth, rerun=True,
                     timer=self.timer, segments=self.segments)
                 depths = torch.where(invalid, depths_new, depths)
                 invalid = invalid & invalid_new
-        return depths.cpu().numpy(), invalid.cpu().numpy()
+        return timing.to_host(depths), timing.to_host(invalid)

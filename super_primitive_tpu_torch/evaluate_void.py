@@ -73,11 +73,13 @@ def evaluate(dc, ds, n: int) -> dict:
         validity_rates.append((depths > 1e-6).mean())
         images.append({"validity_rate": float(validity_rates[-1]), "wall_s": wall,
                        "sparse_points": int((s["sparse_depth"] > 1e-6).sum()),
-                       "segments": list(dc.segments), "stage_s": dict(timer.totals)})
+                       "segments": list(dc.segments), "stage_s": dict(timer.totals),
+                       "counters": dict(timer.counters)})
         print(f"[{i + 1}/{n}] validity rate {validity_rates[-1]:.3f}")
         print(f"[{i + 1}/{n}] wall {wall:.3f} s, sparse points {images[-1]['sparse_points']}, "
               f"(segments, visible) per pass {dc.segments}, stage seconds "
-              + json.dumps({k: round(v, 4) for k, v in timer.totals.items()}), flush=True)
+              + json.dumps({k: round(v, 4) for k, v in timer.totals.items()})
+              + f", counters {json.dumps(dict(timer.counters))}", flush=True)
 
     tables = {}
     for name, avg in (("filled", avg_filled), ("valid-only", avg_valid)):

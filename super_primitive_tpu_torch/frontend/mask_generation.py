@@ -17,12 +17,11 @@ package from the same seed.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..image.gradients import scharr_gradients
+from ..utils import timing
 
 MASK_THRESH = 0.0
 STABILITY_OFFSET = 1.0
@@ -185,7 +184,7 @@ def _edges(f: torch.Tensor) -> np.ndarray:
     """Max Scharr magnitude over (N, H, W) float32 masks on their device,
     reflect-padded Scharr/32; the (H, W) map on the host."""
     gx, gy = scharr_gradients(f.permute(1, 2, 0), reflect_padding=True)
-    return torch.amax(torch.sqrt(gx**2 + gy**2), dim=-1).cpu().numpy()
+    return timing.to_host(torch.amax(torch.sqrt(gx**2 + gy**2), dim=-1))
 
 
 def masks_to_edges(masks: np.ndarray, device: str | torch.device = "cuda") -> np.ndarray:
@@ -240,10 +239,6 @@ def infer_edge_probs_coarse(
     return edges, probs, edges_coarse, probs_coarse
 
 
-def _stage(timer, name):
-    return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
-
 def infer_masks(
     predict_fn,
     image: np.ndarray,
@@ -276,13 +271,15 @@ def infer_masks(
     selection (a ``DeferredMasks`` on the device path) before round 2, so a
     caller can start per-segment work early.  ``timer``: an optional
     ``utils.timing.StageTimer`` for the sam_round1 / sam_round2 / sam_edges
-    stages."""
+    stages.  Counts each round's ``prompts_decoded`` as it is dispatched
+    and its ``masks_kept`` after the selection and NMS."""
     rng = rng or np.random.default_rng(42)
     H, W = image.shape[:2]
     if keypoints is None:
         keypoints = (rng.random((num_pts, 2)) * 2 - 1).astype(np.float32)
 
     def run_round(kps):
+        timing.count("prompts_decoded", len(kps))
         out = predict_fn(image, kps)
         stability = areas = None
         if len(out) == 4:  # device statistics path
@@ -307,16 +304,19 @@ def infer_masks(
             keep = nms(sel["boxes"], scores, sam_params.box_nms_thresh)
             sel = {k: v[keep] for k, v in sel.items()}
             kps_f = kps_f[keep]
+        timing.count("masks_kept", len(kps_f))
         return sel, kps_f
 
     sr = getattr(predict_fn, "select_round", None)
     if sr is not None and sam_params.select_smallest:
-        with _stage(timer, "sam_round1"):
+        with timing.span(timer, "sam_round1"):
+            timing.count("prompts_decoded", len(keypoints))
             h1 = sr.dispatch(image, keypoints, sam_params)
             sel = sr.finish(h1, sam_params, defer_masks=True)
             deferred = sel.pop("deferred")
             cov_pre = sel.pop("coverage", None)
             kps_f = keypoints[sel["keypoints_ids"]]
+            timing.count("masks_kept", len(kps_f))
         n1 = deferred.n_rows
         if n1:
             H, W = deferred.hs, deferred.ws  # mask working resolution
@@ -328,15 +328,17 @@ def infer_masks(
         sel2 = None
         if num_pts_active > 0:
             kps_active = active_sample_pos(coverage, num_pts_active, rng)
-            with _stage(timer, "sam_round2"):
+            with timing.span(timer, "sam_round2"):
+                timing.count("prompts_decoded", len(kps_active))
                 h2 = sr.dispatch(image, kps_active, sam_params)
                 sel["masks"] = deferred.fetch()
                 sel2 = sr.finish(h2, sam_params)
                 kps2_f = kps_active[sel2["keypoints_ids"]]
+                timing.count("masks_kept", len(kps2_f))
         else:
             sel["masks"] = deferred.fetch()
     else:
-        with _stage(timer, "sam_round1"):
+        with timing.span(timer, "sam_round1"):
             sel, kps_f = run_round(keypoints)
         if len(sel["masks"]):
             H, W = sel["masks"].shape[-2:]  # mask working resolution
@@ -349,7 +351,7 @@ def infer_masks(
         sel2 = None
         if num_pts_active > 0:
             kps_active = active_sample_pos(coverage, num_pts_active, rng)
-            with _stage(timer, "sam_round2"):
+            with timing.span(timer, "sam_round2"):
                 sel2, kps2_f = run_round(kps_active)
 
     sel["src_round"] = np.zeros(n1, np.int64)
@@ -366,7 +368,7 @@ def infer_masks(
         }
         kps_f = np.concatenate([kps_f, kps2_f], axis=0)
 
-    with _stage(timer, "sam_edges"):
+    with timing.span(timer, "sam_edges"):
         if not len(sel["masks"]):
             edges = edges_coarse = np.zeros((H, W), np.float32)
             edge_probs = edge_probs_coarse = np.ones((H, W), np.float32)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..image.gradients import scharr_gradients
 from ..ops.connected_components import label_components
+from ..utils import timing
 from ..utils.numerics import sqrt_rn
 
 # segment pixels a device pass of the split takes: 436 segments at
@@ -64,11 +65,6 @@ def split_disconnected_segments(
     its mask and keypoint; parts of at most ``area_keep_ratio * H * W``
     pixels are dropped.  Every segment is labelled, not only those with
     discontinuities: a SAM mask can be disconnected by itself."""
-    import contextlib
-
-    def _stage(name):
-        return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
     rng = rng or np.random.default_rng(0)
     N, H, W = regions.shape
     if N == 0:
@@ -79,25 +75,25 @@ def split_disconnected_segments(
     several = {}  # segment -> its kept labels, for segments with more than one
     step = max(1, SPLIT_CHUNK_PIXELS // (H * W))
     for lo in range(0, N, step):
-        with _stage("split_disc"):
+        with timing.span(timer, "split_disc"):
             reg_t = torch.from_numpy(np.ascontiguousarray(regions[lo:lo + step], bool)).to(device)
             ld_t = torch.from_numpy(
                 np.ascontiguousarray(logdepth_perseg[lo:lo + step], np.float32)).to(device)
             disc = depth_discontinuity(ld_t, reg_t, filter_size, depth_threshold)
-        with _stage("split_cc"):
+        with timing.span(timer, "split_cc"):
             lab = label_components(reg_t & ~disc).reshape(-1, H * W)
-            labels[lo:lo + step] = lab.cpu().numpy()
-        with _stage("split_parts"):
+            labels[lo:lo + step] = timing.to_host(lab)
+        with timing.span(timer, "split_parts"):
             # each part's pixel count, at its label (a linear index)
             sizes = torch.zeros(lab.shape, dtype=torch.int32, device=lab.device)
             sizes.scatter_add_(1, lab.clamp(min=0).long(), (lab >= 0).to(torch.int32))
             kept = sizes > min_px
             counts = kept.sum(dim=1)
-            n_kept[lo:lo + step] = counts.cpu().numpy()
-            for j in torch.nonzero(counts > 1).flatten().tolist():
-                several[lo + j] = torch.nonzero(kept[j]).flatten().cpu().numpy()
+            n_kept[lo:lo + step] = timing.to_host(counts)
+            for j in np.flatnonzero(n_kept[lo:lo + step] > 1).tolist():
+                several[lo + j] = np.flatnonzero(timing.to_host(kept[j]))
 
-    with _stage("split_parts"):
+    with timing.span(timer, "split_parts"):
         # (segment i, None = kept whole, else its kept labels)
         parts = [(i, several.get(i)) for i in range(N) if n_kept[i] > 0]
         n_out = sum(1 if k is None else len(k) for _, k in parts)

@@ -47,7 +47,6 @@ calls the JAX package makes.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -67,6 +66,7 @@ from ..keyframe import put_keypoints_back
 from ..nets.nnet import NNET, predict_normals
 from ..nets.sam.image_encoder import config_from_state_dict
 from ..nets.sam.predictor import SamPredictor
+from ..utils import timing
 from ..utils.numerics import float32_matmuls
 from .mask_generation import infer_masks
 from .post_process import split_disconnected_segments
@@ -88,8 +88,9 @@ class FrontProcessor:
     """The keyframe frontend on ``device`` (default the card).
 
     ``timer``: an optional ``utils.timing.StageTimer``; when set, the
-    keyframe stages (normals, sam_masks and its rounds, bini, host_pack,
-    split) accumulate in it."""
+    keyframe's stages accumulate in it: ``keyframe`` (the whole call) over
+    normals, sam_resize, sam_upload, sam_masks (sam_encode and the rounds),
+    bini, host_pack and split."""
 
     def __init__(
         self,
@@ -106,16 +107,19 @@ class FrontProcessor:
         self.device = torch.device(device)
         self.timer = None
 
-    def _stage(self, name):
-        return self.timer.stage(name) if self.timer else contextlib.nullcontext()
-
     def process_to_kf(self, image, K, keypoints=None, loose: bool = False) -> dict:
         """One keyframe from ``image`` (uint8 or float [0, 1]) and ``K``;
         ``keypoints`` (B, 2) normalised (row, col) prompts replace round 1's
         random ones.  ``loose`` is depth completion's fallback: SAM without
         NMS and without the smallest-good pick, so every good candidate of
         every prompt becomes a segment (the host selection path, on the
-        predictor's statistics)."""
+        predictor's statistics).  Counts the keyframe's ``segments``."""
+        with timing.span(self.timer, "keyframe"):
+            kf = self._keyframe(image, K, keypoints, loose)
+            timing.count("segments", kf["regions"].shape[0])
+        return kf
+
+    def _keyframe(self, image, K, keypoints, loose: bool) -> dict:
         fc = self.config.frontend
         image = np.asarray(image)
         if image.dtype != np.uint8:
@@ -126,10 +130,10 @@ class FrontProcessor:
 
         # 1. normals, brought to the integration shape
         img01 = image.astype(np.float32) / 255.0
-        with self._stage("normals"):
+        with timing.span(self.timer, "normals"):
             normals, _ = self.normals_fn(
                 image if getattr(self.normals_fn, "accepts_uint8", False) else img01)
-            normals = normals.cpu().numpy() if torch.is_tensor(normals) else np.asarray(normals)
+            normals = timing.to_host(normals) if torch.is_tensor(normals) else np.asarray(normals)
             if normals.shape[:2] != (Hg, Wg):
                 normals = nn_resize(normals, (Hg, Wg))
             normals_t = torch.from_numpy(np.ascontiguousarray(normals, np.float32)).to(self.device)
@@ -143,17 +147,23 @@ class FrontProcessor:
         if loose:
             sam_params = dataclasses.replace(sam_params, nms=False, select_smallest=False)
         sam_hw = sam_params.infer_resolution
-        sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
+        with timing.span(self.timer, "sam_resize"):
+            sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
         preload = getattr(self.mask_predict_fn, "preload", None)
         if preload is not None:
-            preload(sam_img)
+            with timing.span(self.timer, "sam_upload"):
+                preload(sam_img)
+        predictor = getattr(self.mask_predict_fn, "predictor", None)
         overlap = not sam_params.cut_masks_by_edges
         r1_handle = []
 
         def on_round1(masks_r1):
             r1_handle.append(self._dispatch_integration(normals_t, masks_r1, K_t, bini_cfg))
 
-        with self._stage("sam_masks"):
+        with timing.span(self.timer, "sam_masks"):
+            if predictor is not None:
+                with timing.span(self.timer, "sam_encode"):
+                    predictor.set_image(sam_img)  # the rounds' set_image then finds it
             gen = infer_masks(
                 self.mask_predict_fn, sam_img, sam_params,
                 keypoints=keypoints,
@@ -166,7 +176,7 @@ class FrontProcessor:
             raise RuntimeError("frontend produced no masks")
 
         # 3. BiNI integration per segment at geometry resolution
-        with self._stage("bini"):
+        with timing.span(self.timer, "bini"):
             if overlap:
                 depth_perseg = np.zeros((masks.shape[0], Hg, Wg), np.float32)
                 is_r1 = gen["src_round"] == 0
@@ -180,7 +190,7 @@ class FrontProcessor:
                 depth_perseg = self.integrate(normals, masks, K_geom, bini_cfg)
 
         # 4. downsample image to KF size; depth NN-resized; log in-mask
-        with self._stage("host_pack"):
+        with timing.span(self.timer, "host_pack"):
             s = 2 ** fc.downsample_pow
             H_kf, W_kf = H // s, W // s
             K_kf = scale_K(K, H_kf / H, W_kf / W)
@@ -201,7 +211,7 @@ class FrontProcessor:
 
         # 5. depth-discontinuity split
         if fc.check_for_depth_disc:
-            with self._stage("split"):
+            with timing.span(self.timer, "split"):
                 dp = fc.depth_disc_params
                 regions, logdepth, kp_rc = split_disconnected_segments(
                     regions, logdepth, kp_rc, dp.filter_size, dp.depth_threshold,
@@ -273,7 +283,7 @@ class FrontProcessor:
             masks = nn_resize(handle["deferred"].fetch(), handle["geo"]).astype(bool)
         depth = np.zeros(masks.shape, np.float32)
         for idx, out in handle["buckets"]:
-            zt_c, r0, c0 = (t.cpu().numpy() for t in out)
+            zt_c, r0, c0 = (timing.to_host(t) for t in out)
             ch, cw = zt_c.shape[1:]
             for j, i in enumerate(idx):
                 rr, cc = int(r0[j]), int(c0[j])
@@ -281,7 +291,7 @@ class FrontProcessor:
                 depth[i, rr : rr + ch, cc : cc + cw] = np.exp(zt_c[j]) * win
         if "full" in handle:
             idx, zt = handle["full"]
-            zt = zt.cpu().numpy()
+            zt = timing.to_host(zt)
             for j, i in enumerate(idx):
                 depth[i] = np.exp(zt[j]) * masks[i]
         return depth
@@ -311,7 +321,7 @@ class FrontProcessor:
         img = linear_resize(image.astype(np.float32), (H_kf, W_kf))
         if self.config.frontend.include_normals:
             normals, _ = self.normals_fn(image)
-            normals = normals.cpu().numpy() if torch.is_tensor(normals) else np.asarray(normals)
+            normals = timing.to_host(normals) if torch.is_tensor(normals) else np.asarray(normals)
             n_kf = nn_resize(normals, (H_kf, W_kf)).astype(np.float32)
             img = np.concatenate([img, n_kf], axis=-1)
         return {

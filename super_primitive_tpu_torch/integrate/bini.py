@@ -31,6 +31,7 @@ import torch
 
 from ..ops import stencil
 from ..parallel.mesh import gather_rows, shard_rows
+from ..utils import timing
 
 # Routing: a field goes to K2 where ``stencil.cg_holds`` says K2's plan
 # holds it on chip, at most 16 CTAs of at most ``stencil.K2_BAND_PIXELS_MAX``
@@ -194,7 +195,7 @@ def _pcg(apply_A, b, x0, mask, diag, max_iter, tol):
     x_best = x
     it = 0
     r_norm = best
-    while it < max_iter and bool(seg_active(r_norm, best).any()):
+    while it < max_iter and timing.host_flag(seg_active(r_norm, best).any()):
         improved = (r_norm < best)[:, None, None]
         x_best = torch.where(improved, x, x_best)
         best = torch.minimum(best, r_norm)

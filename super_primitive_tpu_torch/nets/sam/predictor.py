@@ -62,6 +62,7 @@ from torch import nn
 from ...image.resize import linear_resize, resize_bilinear
 from ...ops import phase_counts as k3
 from ...parallel.mesh import gather_rows, shard_rows
+from ...utils import timing
 from .image_encoder import VIT_H, ImageEncoderViT, ViTConfig
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
@@ -197,8 +198,8 @@ def _select_nms_device(packed, iou_pick, kp_valid, boxes, n_valid: int,
     br = torch.minimum(boxes[:, None, 2:], boxes[None, :, 2:])
     inter = torch.prod(torch.clamp(br - tl, min=0), dim=-1)
     ious = inter / torch.clamp(area[:, None] + area[None, :] - inter, min=1e-9)
-    over = (ious > nms_thr).cpu().numpy()
-    order_h, valid_h = order.cpu().numpy(), valid.cpu().numpy()
+    over = timing.to_host(ious > nms_thr)
+    order_h, valid_h = timing.to_host(order), timing.to_host(valid)
 
     kept = np.zeros(C, bool)
     sup = np.zeros(C, bool)
@@ -236,7 +237,7 @@ class DeferredMasks:
         if self.n_rows == 0:
             return np.zeros((self.hs, self.ws), bool)
         cov = _unpackbits_lastaxis(_or_packed_rows(self.rows))
-        return cov[: self.hs, : self.ws].cpu().numpy()
+        return timing.to_host(cov[: self.hs, : self.ws])
 
     def device_masks_resized(self, out_rows: np.ndarray, Hg: int, Wg: int) -> torch.Tensor:
         """(len(out_rows), Hg, Wg) device bool masks of rows ``out_rows``, the
@@ -263,7 +264,7 @@ class DeferredMasks:
         """(n_rows, hs, ws) host bool masks (cached)."""
         if self._host is None:
             m = _unpackbits_lastaxis(self.rows)[:, : self.hs, : self.ws]
-            self._host = m.cpu().numpy()
+            self._host = timing.to_host(m)
         return self._host
 
 
@@ -302,8 +303,7 @@ class PromptRounds:
                  for lo in range(0, pts.shape[0], STATS_CHUNK)]
         packed, iou, stab, area = (torch.cat(ts) for ts in zip(*parts))
         bits = _unpackbits_lastaxis(packed)[..., :hs, :ws]
-        return (bits.cpu().numpy(), iou.cpu().numpy(), stab.cpu().numpy(),
-                area.cpu().numpy())
+        return tuple(timing.to_host(t) for t in (bits, iou, stab, area))
 
     def predict_points_select(self, points_input_frame: np.ndarray,
                               iou_threshold: float = 0.0,
@@ -339,7 +339,7 @@ class PromptRounds:
         packed, iou_pick, kp_valid, boxes, pick = handle["out"]
         hs, ws, n = handle["hs"], handle["ws"], handle["n"]
         iou_all, valid, boxes_all, pick_all = (
-            t.cpu().numpy() for t in (iou_pick, kp_valid, boxes, pick))
+            timing.to_host(t) for t in (iou_pick, kp_valid, boxes, pick))
         kp_ids = np.nonzero(valid)[0]
         coverage_packed = None
         if nms_enabled and kp_ids.size:
@@ -361,7 +361,7 @@ class PromptRounds:
             out["deferred"] = deferred
             if coverage_packed is not None:
                 cov = _unpackbits_lastaxis(coverage_packed)
-                out["coverage"] = cov[:hs, :ws].cpu().numpy()
+                out["coverage"] = timing.to_host(cov[:hs, :ws])
         return out
 
 
@@ -543,8 +543,8 @@ class SamPredictor(PromptRounds):
             n = part.shape[0]
             part = np.concatenate([part, np.zeros((chunk - n, 2), np.float32)])
             lowres, iou = self._decode(self._points(part))
-            masks.append(self.postprocess_masks(lowres[:n, 1:]).cpu().numpy())
-            ious.append(iou[:n, 1:].cpu().numpy())
+            masks.append(timing.to_host(self.postprocess_masks(lowres[:n, 1:])))
+            ious.append(timing.to_host(iou[:n, 1:]))
         return np.concatenate(masks), np.concatenate(ious)
 
     def postprocess_masks(self, lowres_masks: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,6 @@ steps 1, 3 and 4, so the step's one fetch reads replicated values.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -34,7 +33,7 @@ import torch
 
 from ..image import pyramid as pyr
 from ..solve.gauss_newton import gn_track_frame
-from ..utils.timing import to_host
+from ..utils import timing
 from . import kf_criteria
 from .mapper import run_supp_refinement_gn
 from .window import WindowBuffers
@@ -67,13 +66,10 @@ def fused_frame_step(buffers: WindowBuffers, kf_slot: int, trg_image: torch.Tens
     first); ``kf_pyramid`` the keyframe's image pyramid if already built.
     ``timer``: a ``StageTimer`` for the sub-stages fused_track, fused_supp
     and fused_gating (each ends in a synchronisation on the card)."""
-    def stage(name):
-        return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
     i = int(kf_slot)
     bundle = buffers.bundle_at(i)
     T_kf = buffers.poses[i]
-    with stage("fused_track"):
+    with timing.span(timer, "fused_track"):
         if kf_pyramid is None:
             kf_pyramid = pyr.image_pyramid(buffers.images[i], pyramid_min, pyramid_max)
         trg_pyr = pyr.image_pyramid(trg_image, pyramid_min, pyramid_max)
@@ -83,7 +79,7 @@ def fused_frame_step(buffers: WindowBuffers, kf_slot: int, trg_image: torch.Tens
             levels=list(levels), max_iters=max_iters, use_affine=use_affine)
         track_cost = infos[-1].final_cost if infos else torch.zeros((), device=T_kf.device)
 
-    with stage("fused_supp"):
+    with timing.span(timer, "fused_supp"):
         # slots [prev, current] with a previous tracked frame; the first
         # frame after a keyframe fills slot 0 alone
         prev_valid = prev_img is not None
@@ -104,8 +100,8 @@ def fused_frame_step(buffers: WindowBuffers, kf_slot: int, trg_image: torch.Tens
             buffers.kp_logdepth[i] = ld_row
         ld_row = buffers.kp_logdepth[i]
 
-    with stage("fused_gating"):
+    with timing.span(timer, "fused_gating"):
         gate = kf_criteria.gating_tensors(buffers, i, T_frame, geo_dims)
-        packed = to_host(torch.cat([T_frame.reshape(16), affine, gate, track_cost[None]]))
+        packed = timing.to_host(torch.cat([T_frame.reshape(16), affine, gate, track_cost[None]]))
     return FusedResult(packed=packed, kp_logdepth=ld_row,
                        track_iters=[r.num_iters for r in infos], supp_iters=supp_iters)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import gather_rows, shard_rows
+from ..utils import timing
 
 
 def _seg_min_scan(vals: torch.Tensor, boundary: torch.Tensor, dim: int,
@@ -70,7 +71,7 @@ def label_components(masks: torch.Tensor, group=None) -> torch.Tensor:
     labels = sweep(labels)
     while True:
         new = jump(sweep(labels))
-        if bool(torch.equal(new, labels)):
+        if timing.host_flag(torch.equal(new, labels)):
             break
         labels = new
     return gather_rows(torch.where(masks, labels, torch.full_like(labels, -1)).to(torch.int32),

@@ -417,4 +417,8 @@ def test_evaluate_void_real_nets_cpu(tmp_path, capsys):
     assert image["sparse_points"] == 16 and 0 < image["validity_rate"] <= 1
     assert "loose_rerun" in image["stage_s"] and "sam_round1" in image["stage_s"]
     assert len(image["segments"]) == 2 and all(n >= max(v, 1) for n, v in image["segments"])
+    # both passes' counts: the keyframes' segments, each pass's prompts in two rounds
+    counters = image["counters"]
+    assert counters["segments"] == sum(n for n, _ in image["segments"])
+    assert counters["prompts_decoded"] >= 2 * 16 and counters["host_reads"] > 0
     assert res["completion"].frontend.device.type == "cpu"
