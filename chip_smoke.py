@@ -18,6 +18,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at the select rounds' (384 | 96, 256, 256), and on the adversarial
      cases of ``eval/k3_cases.py`` (cutoffs, subnormals, NaN and +-inf,
      Voronoi margins) at 96x256² and 3x128², every count exact;
+  3c. the SAM frame's kernel (``sam_frame``: SAM's input frame made from
+     the image, both resizes in one pass) against its plain version, every
+     byte equal, at the copy, the exact 2x reduction and odd ratios;
   4. BiNI on a 480x640 normal field with 8 masks, which takes the
      K1-per-iteration route, against the plain route;
   5. the two-frame slice: two-frame SfM on the synthetic planes sequence at
@@ -54,10 +57,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on the card's features for a 32-prompt round, and on the NNET at
      480x640, within ``NET_CARD_TOL``; the bf16 SAM stays within
      ``BF16_TOL`` of the float32 one.  Then two keyframes (cold, warm) and a supporting
-     frame, with K3 launched in both rounds of each keyframe and K2 wherever
-     a segment exists, and a 4-frame VO run (``run_sfm.run_odometry``)
+     frame, with K3 launched in both rounds of each keyframe, K2 wherever
+     a segment exists and the SAM frame's kernel once, and a 4-frame VO run (``run_sfm.run_odometry``)
      through the same frontend; K3 (exact) and K2 on the real decoder's and
-     BiNI's recorded inputs; encoder, decode, selection and NNET times;
+     BiNI's recorded inputs, the SAM frame's kernel (exact) on the image
+     (480x640 -> 240x320 -> 768x1024); encoder, decode, selection and NNET times;
   9. VOID depth completion at full width on trees in the VOID, TUM and
      Replica layouts written from the planes sequence
      (``eval/dataset_trees.py``; 500 sparse pixels an image): (a) ``python
@@ -74,7 +78,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      max_iter and tol on the first segments and the longest-running ones of
      the path's largest call and of its longest-running call, each call
      timed whole; K3 against its plain version, timed, on the first call at
-     each slab count;
+     each slab count; the SAM frame's kernel against its plain version on
+     the path's image (480x640 -> 960x1280 -> 768x1024, every byte), timed,
+     with the predictor's whole ``prepare_frame``;
      (b) the structured fake completes the same images, gated on the
      valid-only AbsRel and the validity rate (``VOID_FAKE_*``); (c) the TUM
      and Replica trees decode to the arrays written; ``run_sfm --odom
@@ -239,6 +245,12 @@ ADAM_VO_FRAMES = 9
 K2_CHECK_SHAPES = [(2, 32, 32), (34, 64, 64), (14, 128, 128), (8, 240, 320)]
 # the ring-halo shapes: one CTA, 8 CTAs and 16 CTAs a segment
 K2_RING_SHAPES = [(2, 32, 32), (3, 128, 128), (2, 240, 320)]
+# phase 3c's SAM frame shapes (image, infer_resolution, SAM's input): the
+# copy, the exact 2x reduction and odd ratios; the keyframe's own shapes
+# come from phases 8 and 9
+SAM_FRAME_CHECK_SHAPES = [((48, 64), (48, 64), (48, 64)), ((96, 128), (48, 64), (24, 32)),
+                          ((97, 131), (200, 260), (150, 197)),
+                          ((300, 400), (150, 200), (77, 103)), ((60, 80), (60, 100), (51, 85))]
 REAL_NET_FRAMES = 4
 # phase 8, card against CPU in float32: relative to max|CPU| for the ViT-H
 # blocks and the decoder's logits and IoU, on the synthetic SAM weights at
@@ -326,18 +338,20 @@ K2_VOID_SLICE = 4
 
 def reset_launch_counts():
     """Set every kernel's launch count to 0: K1 and K2 (``ops.stencil``),
-    K3 (``ops.phase_counts``), K4 (``ops.attention``)."""
-    from super_primitive_tpu_torch.ops import attention, phase_counts, stencil
+    K3 (``ops.phase_counts``), K4 (``ops.attention``), the SAM frame's
+    (``ops.sam_frame``)."""
+    from super_primitive_tpu_torch.ops import attention, phase_counts, sam_frame, stencil
 
-    for module in (stencil, phase_counts, attention):
+    for module in (stencil, phase_counts, attention, sam_frame):
         module.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """{kernel: launches since the last :func:`reset_launch_counts`}."""
-    from super_primitive_tpu_torch.ops import attention, phase_counts, stencil
+    from super_primitive_tpu_torch.ops import attention, phase_counts, sam_frame, stencil
 
-    return {**stencil.launch_counts, **phase_counts.launch_counts, **attention.launch_counts}
+    return {**stencil.launch_counts, **phase_counts.launch_counts, **attention.launch_counts,
+            **sam_frame.launch_counts}
 
 
 def fail(msg: str):
@@ -867,6 +881,60 @@ def check_k3(torch, k3):
     print(f"K3 adversarial cases ({', '.join(KINDS)}): {checked} inputs, every count exact",
           flush=True)
     return rows
+
+
+def sam_frame_row(torch, sf, image, mid_hw, out_hw, predictor=None) -> dict:
+    """The SAM frame's kernel against ``sam_frame_reference`` on one image,
+    every byte equal; kernel (CUDA events over back-to-back calls) and plain
+    (the two numpy resizes, host clock) times; the bound (bytes: the image
+    and the tap tables read, the frame written).  With ``predictor``, also
+    its whole ``prepare_frame`` of the image from a host array (staging
+    copy, upload and kernel, synchronised; host clock), what the keyframe's
+    ``sam_upload`` span holds."""
+    H, W, _ = image.shape
+    host = image.cpu()
+    got = sf.sam_frame(image, mid_hw, out_hw).cpu()
+    want = sf.sam_frame_reference(host, mid_hw, out_hw)
+    err = int((got.int() - want.int()).abs().max())
+    ms = time_ms(torch, lambda: sf.sam_frame(image, mid_hw, out_hw), reps=200)
+    plain = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sf.sam_frame_reference(host, mid_hw, out_hw)
+        plain.append((time.perf_counter() - t0) * 1e3)
+    nbytes = host.numel() + want.numel() + sf.tap_tables((H, W), mid_hw, out_hw).nbytes
+    b_ms, b_by = bound_ms(nbytes, 0)
+    row = {"shape": [H, W], "mid_hw": list(mid_hw), "out_hw": list(out_hw),
+           "max_abs_err": err, "ms": ms, "plain_ms": statistics.median(plain),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": 0}
+    if predictor is not None:
+        image_np, prep = host.numpy(), []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor.prepare_frame(image_np, mid_hw)
+            torch.cuda.synchronize()
+            prep.append((time.perf_counter() - t0) * 1e3)
+        row["prepare_frame_ms"] = statistics.median(prep)
+    print(f"SAM frame {H}x{W} -> {tuple(mid_hw)} -> {tuple(out_hw)}: max abs err {err}; kernel "
+          f"{ms * 1e3:.2f} us, plain {row['plain_ms']:.2f} ms, bound {b_ms * 1e3:.3f} us ({b_by})"
+          + (f", prepare_frame {row['prepare_frame_ms']:.3f} ms" if predictor else ""),
+          flush=True)
+    if err != 0:
+        fail(f"the SAM frame's kernel disagrees with its plain version at {H}x{W} -> "
+             f"{tuple(mid_hw)} -> {tuple(out_hw)}")
+    if ms < b_ms:
+        fail(f"the SAM frame's kernel time at {H}x{W} is below its bound")
+    return row
+
+
+def check_sam_frame(torch, sf):
+    """Phase 3c: the SAM frame's kernel against its plain version, byte for
+    byte, at ``SAM_FRAME_CHECK_SHAPES`` on random images."""
+    g = torch.Generator().manual_seed(5)
+    return [sam_frame_row(torch, sf, torch.randint(0, 256, (*src, 3), generator=g,
+                                                   dtype=torch.uint8).cuda(), mid, out)
+            for src, mid, out in SAM_FRAME_CHECK_SHAPES]
 
 
 def undecided_share(torch, k3, x, s, input_hw) -> float:
@@ -1623,6 +1691,7 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
         synth_nnet_state_dict,
         synth_sam_state_dict,
     )
+    from super_primitive_tpu_torch.ops import sam_frame as sf
     from super_primitive_tpu_torch.run_sfm import run_odometry
     from super_primitive_tpu_torch.utils.timing import StageTimer
 
@@ -1647,7 +1716,8 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     ds = PlanesSequence(n_frames=REAL_NET_FRAMES, H=480, W=640, path="linear")
     image_u8 = (np.clip(ds[0]["image"], 0, 1) * 255).astype(np.uint8)
     sam_img = linear_resize(image_u8, tuple(cfg.sam_params.infer_resolution))
-    img_dev, h2w2 = predictor._upload(sam_img)
+    img_dev = predictor._upload(sam_img)
+    h2w2 = tuple(img_dev.shape[:2])
     r = np.random.default_rng(8)
     pts = torch.from_numpy((r.random((cfg.frontend.num_pts_active, 2))
                             * [h2w2[1] - 1, h2w2[0] - 1]).round().astype(np.float32))
@@ -1659,7 +1729,8 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
     fe.timer = StageTimer("cuda")
     kf_s, segs = [], []
     with first_inputs(torch, stencil, "bini_cg") as k2_inputs, \
-            first_inputs(torch, k3, "phase_counts") as k3_inputs:
+            first_inputs(torch, k3, "phase_counts") as k3_inputs, \
+            first_inputs(torch, sf, "sam_frame") as sf_inputs:
         reset_launch_counts()
         for i in (0, 1):
             before = launch_counts()
@@ -1671,6 +1742,9 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
             segs.append(int(kf["regions"].shape[0]))
             d_k3 = k3.launch_counts["phase_counts"] - before["phase_counts"]
             d_k2 = stencil.launch_counts["bini_cg"] - before["bini_cg"]
+            d_sf = sf.launch_counts["sam_frame"] - before["sam_frame"]
+            if d_sf != 1:
+                fail(f"real-net keyframe {i} launched the SAM frame's kernel {d_sf} times")
             if segs[-1] < 1 or not np.isfinite(kf["logdepth_perseg"]).all():
                 fail(f"real-net keyframe {i}: {segs[-1]} segments or non-finite log-depths")
             if d_k3 != 2 or d_k2 == 0:
@@ -1704,6 +1778,8 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
 
     k2_rows = [k2_row(torch, stencil, *args) for args in k2_inputs.values()]
     k3_rows = [k3_row(torch, k3, *args) for args in k3_inputs.values()]
+    sf_rows = [sam_frame_row(torch, sf, *args, predictor=predictor)
+               for args in sf_inputs.values()]
     for row, args in zip(k3_rows, k3_inputs.values()):
         row["undecided_share"] = undecided_share(torch, k3, *args)
     print("K3 on the real decoder's logits: " + ", ".join(
@@ -1752,7 +1828,7 @@ def run_real_nets(torch, stencil, k3, pkg_dir: Path, card: str):
                "vo_keyframes": odom.num_kfs, "vo_wall_s": vo_s,
                "vo_kf_add_s": [w for _, w, _ in odom.kf_add_log], "vo_ate_sim3": ate,
                "vo_stage_s": vo_stages, "launches": launches, "times": times}
-    return launches, k2_rows, k3_rows, summary, decode_inputs, weights
+    return launches, k2_rows, k3_rows, sf_rows, summary, decode_inputs, weights
 
 
 @contextlib.contextmanager
@@ -1824,7 +1900,9 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
     and with it K3's statistics path run.  The weights are phase 8's
     frontend's (``weights``, phase 8's synthetic state dicts; at a trained
     net's scale, random SAM weights leave no candidate stable at the
-    config's 0.9).  Records K2's and K3's inputs."""
+    config's 0.9).  Records K2's and K3's inputs; holds the SAM frame's
+    kernel to its plain version on the path's first image, and times it and
+    the predictor's ``prepare_frame`` there."""
     import numpy as np
 
     from super_primitive_tpu_torch import evaluate_void
@@ -1832,6 +1910,7 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
     from super_primitive_tpu_torch.data.void import VoidDataset
     from super_primitive_tpu_torch.depth_completion.completion import DepthCompletion
     from super_primitive_tpu_torch.nets.sam.image_encoder import VIT_H
+    from super_primitive_tpu_torch.ops import sam_frame as sf
     from super_primitive_tpu_torch.utils.timing import StageTimer
 
     t0 = time.perf_counter()
@@ -1843,7 +1922,8 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
     # every K2 call logged, the largest and the longest-running kept whole;
     # K3's first call at each slab count
     with k2_calls(torch, stencil) as k2_seen, \
-            first_inputs(torch, k3, "phase_counts") as k3_inputs, slab_counts(k3) as slabs:
+            first_inputs(torch, k3, "phase_counts") as k3_inputs, slab_counts(k3) as slabs, \
+            first_inputs(torch, sf, "sam_frame") as sf_inputs:
         reset_launch_counts()
         t0 = time.perf_counter()
         res = evaluate_void.main(["--dataset", str(work / "void"), "--config", str(cfg_path),
@@ -1878,6 +1958,8 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
              "k3_slabs": slabs["n"] - slabs0, "stats_path": stats,
              "validity_rate": float((depths > 1e-6).mean()),
              "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+    sf_rows = [sam_frame_row(torch, sf, *args, predictor=fe.mask_predict_fn.predictor)
+               for args in sf_inputs.values()]
     for name, run in (("evaluate_void", cli), ("loose image", loose)):
         print(f"VOID real nets on {card}, {name}: launches {run['launches']}, K3 slabs "
               f"{run['k3_slabs']}, peak memory {run['peak_GiB']:.2f} GiB", flush=True)
@@ -1890,6 +1972,8 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
         fail("the VOID path launched K1")
     if cli["launches"]["bini_cg"] == 0 or cli["launches"]["phase_counts"] == 0:
         fail("evaluate_void on the real nets did not launch K2 and K3")
+    if cli["launches"]["sam_frame"] == 0 or loose["launches"]["sam_frame"] == 0:
+        fail("the VOID path did not make SAM's frame on the card")
     if stats["calls"] == 0 or stats["k3_launches"] == 0:
         fail("the loose rerun did not take K3's statistics path")
     if not (np.isfinite(depths).all() and (depths[~invalid] > 0).all()):
@@ -1909,7 +1993,8 @@ def run_void_real(torch, stencil, k3, pkg_dir: Path, work: Path, seq, weights: d
                "validity_rates": res["validity_rates"],
                "evaluate_void_s": cli_s, "trees_s": trees_s, "evaluate_void": cli,
                "loose_image": loose, "k2_calls": k2_log}
-    recorded = {"bini_cg": k2_seen["kept"], "phase_counts": list(k3_inputs.values())}
+    recorded = {"bini_cg": k2_seen["kept"], "phase_counts": list(k3_inputs.values()),
+                "sam_frame_rows": sf_rows}
     return summary, recorded
 
 
@@ -2088,7 +2173,7 @@ def run_void(torch, stencil, k3, pkg_dir: Path, weights: dict, card: str):
     structured fake) and the TUM, Replica and VOID loaders (9c); then K2
     against its plain version on slices of the VOID path's largest and
     longest-running calls, timed on each whole call, and K3, timed, on the
-    path's first call at each slab count."""
+    path's first call at each slab count; the SAM frame's rows from 9a."""
     import shutil
 
     from super_primitive_tpu_torch.data.synthetic import PlanesSequence
@@ -2107,6 +2192,7 @@ def run_void(torch, stencil, k3, pkg_dir: Path, weights: dict, card: str):
     k3_rows = [k3_row(torch, k3, *args) for args in recorded["phase_counts"]]
     for row, args in zip(k3_rows, recorded["phase_counts"]):
         row["undecided_share"] = undecided_share(torch, k3, *args)
+    sf_rows = recorded["sam_frame_rows"]
     del recorded
     torch.cuda.empty_cache()
     fake = run_void_fake(torch, stencil, k3, pkg_dir, work, seq)
@@ -2120,7 +2206,7 @@ def run_void(torch, stencil, k3, pkg_dir: Path, weights: dict, card: str):
           + ", ".join(f"{r['shape'][0]} slabs exact, device {r['device_ms'] * 1e3:.2f} us, "
                       f"{100 * r['undecided_share']:.2f}% to the full path" for r in k3_rows),
           flush=True)
-    return launches, k2_rows, k3_rows, summary
+    return launches, k2_rows, k3_rows, sf_rows, summary
 
 
 def host_window(kfs, window_size: int, supp_cap: int, seg_cap: int, point_cap: int) -> dict:
@@ -2790,7 +2876,7 @@ def day0_full_rank(mesh, work: str) -> dict:
     compare_s = time.perf_counter() - t0
     predictor = SamPredictor(sam_from_flax(got), VIT_H, device="cuda")
     del got
-    img_dev, _ = predictor._upload(sample_image())
+    img_dev = predictor._upload(sample_image())
     forward_ms = time_ms(torch, lambda: predictor.encode(img_dev), reps=3)
     leg.update(pth=str(leg["pth"]), npz=str(leg["npz"]))
     return {"leg": leg, "launches": launches, "recorded": list(k3_inputs.values()),
@@ -3233,6 +3319,7 @@ def main() -> int:
     from super_primitive_tpu_torch.ops import _build, stencil
     from super_primitive_tpu_torch.ops import attention as k4
     from super_primitive_tpu_torch.ops import phase_counts as k3
+    from super_primitive_tpu_torch.ops import sam_frame as sf
     from super_primitive_tpu_torch.run_sfm import require_device
 
     smi = subprocess.run(
@@ -3263,6 +3350,7 @@ def main() -> int:
     k1 = phase("2_k1", check_k1, torch, bini, stencil)
     k2 = phase("3_k2", check_k2, torch, bini, stencil)
     k3_checks = phase("3b_k3", check_k3, torch, k3)
+    sf_checks = phase("3c_sam_frame", check_sam_frame, torch, sf)
     k1_launches, k1_path = phase("4_bini_480", check_bini_480, torch, bini, stencil)
     k2_launches, k2_path, adam_slice = phase("5_two_frame", run_slice, torch, stencil)
     tf_gn_launches, tf_gn = phase("5b_two_frame_gn", run_slice_gn, torch, stencil, k3,
@@ -3272,9 +3360,9 @@ def main() -> int:
     vo_launches, k2_vo, k3_vo, vo, vo_inputs = phase("7_vo", run_vo, torch, stencil, k3)
     vo_gn_launches, vo_gn, sharded_inputs = phase("7b_vo_gn", run_vo_gn, torch, stencil, k3,
                                                   vo, vo_inputs)
-    rn_launches, k2_rn, k3_rn, rn, decode_inputs, net_weights = phase(
+    rn_launches, k2_rn, k3_rn, sf_rn, rn, decode_inputs, net_weights = phase(
         "8_real_nets", run_real_nets, torch, stencil, k3, pkg_dir, smi)
-    void_launches, k2_void, k3_void, void = phase("9_void", run_void, torch, stencil, k3,
+    void_launches, k2_void, k3_void, sf_void, void = phase("9_void", run_void, torch, stencil, k3,
                                                   pkg_dir, net_weights, smi)
     torch.cuda.empty_cache()
     resume_launches, resume = phase("10_resume", run_resume, torch, stencil, k3, smi)
@@ -3337,6 +3425,12 @@ def main() -> int:
                   **{p: n["ext_attention"] for p, n in s10_launches.items()}}
     if any(earlier_k4.values()):
         fail(f"K4 launched on a path that does not ask for it: {earlier_k4}")
+    path_launches = {"bini_480": k1_launches, "two_frame": k2_launches,
+                     "two_frame_gn": tf_gn_launches, "vo": vo_launches, "vo_gn": vo_gn_launches,
+                     "real_nets": rn_launches, "void": void_launches,
+                     "resume": resume_launches, "sharded": sharded_launches, **s10_launches,
+                     "real_net_flash_keyframe": attn_launches}
+    sf_launches = {p: n["sam_frame"] for p, n in path_launches.items()}
     kernels = [
         entry("bini_apply", "super_primitive_tpu/ops/pallas_stencil.py:71",
               k1_launches["bini_apply"], k1_path, k1,
@@ -3389,6 +3483,11 @@ def main() -> int:
               tflop_per_s=sum(r["flops"] for r in k4_path) / 1e9
               / sum(r.get("device_ms", r["ms"]) for r in k4_path),
               sass={op: attention["k4_sass"][op] for op in ("HGMMA", "HMMA")}),
+        entry("sam_frame", "super_primitive_tpu/frontend/process_frame.py:204 and "
+              "nets/sam/predictor.py:634 (cv2.resize on the host; no Pallas kernel)",
+              void_launches["sam_frame"], sf_void, sf_checks, launches_by_path=sf_launches,
+              real_nets_path_shapes=sf_rn,
+              prepare_frame_ms=statistics.median(r["prepare_frame_ms"] for r in sf_void)),
     ]
     print(json.dumps({"vo_slice": vo}))
     print(json.dumps({"two_frame_gn": tf_gn, "gn_card_vs_cpu": gn_small, "vo_slice_gn": vo_gn}))

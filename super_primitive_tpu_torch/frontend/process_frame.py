@@ -26,7 +26,8 @@ Models are injected as callables:
 or, for the device selection path, ``wire_mask_predictor(predictor)``.  A
 ``normals_fn`` with ``accepts_uint8`` set takes the uint8 image instead (the
 real NNET divides by 255 on the device), and a ``mask_predict_fn`` with a
-``preload`` starts the SAM frame's upload before the first round.
+``prepare_frame`` makes the SAM frame at ``infer_resolution`` itself, from the
+keyframe's image (the real predictor's, on the device: a ``SamFrame``).
 :func:`build_frontend` and :func:`frontend_from_state_dicts` wire the real
 nets.
 
@@ -42,7 +43,9 @@ NNET runs in float32.  Both builders turn TF32 off for cuBLAS and cuDNN
 matmuls stay float32 on the card whoever calls them.
 
 The resizes are ``image/resize.py``'s numpy replacements of the OpenCV
-calls the JAX package makes.
+calls the JAX package makes, but for the SAM frame on the real predictor:
+its two resizes (to ``infer_resolution``, then to SAM's input) run as one
+kernel on the card (``ops/sam_frame``), with the same bytes.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from ..integrate.bini import (
 from ..keyframe import put_keypoints_back
 from ..nets.nnet import NNET, predict_normals
 from ..nets.sam.image_encoder import config_from_state_dict
-from ..nets.sam.predictor import SamPredictor
+from ..nets.sam.predictor import SamFrame, SamPredictor
 from ..utils import timing
 from ..utils.numerics import float32_matmuls
 from .mask_generation import infer_masks
@@ -90,7 +93,9 @@ class FrontProcessor:
     ``timer``: an optional ``utils.timing.StageTimer``; when set, the
     keyframe's stages accumulate in it: ``keyframe`` (the whole call) over
     normals, sam_resize, sam_upload, sam_masks (sam_encode and the rounds),
-    bini, host_pack and split."""
+    bini, host_pack and split.  Counts ``sam_frame_on_card`` for a keyframe
+    whose SAM frame the kernel made, ``sam_frame_on_host`` for one made by
+    the numpy resizes."""
 
     def __init__(
         self,
@@ -146,13 +151,17 @@ class FrontProcessor:
         sam_params = self.config.sam_params
         if loose:
             sam_params = dataclasses.replace(sam_params, nms=False, select_smallest=False)
-        sam_hw = sam_params.infer_resolution
+        sam_hw = tuple(sam_params.infer_resolution)
+        prepare = getattr(self.mask_predict_fn, "prepare_frame", None)
+        # sam_resize holds the SAM frame's host work, none where the
+        # predictor makes the frame; it opens on both paths all the same
         with timing.span(self.timer, "sam_resize"):
-            sam_img = linear_resize(image, (sam_hw[0], sam_hw[1]))
-        preload = getattr(self.mask_predict_fn, "preload", None)
-        if preload is not None:
+            sam_img = linear_resize(image, sam_hw) if prepare is None else None
+        if prepare is not None:
             with timing.span(self.timer, "sam_upload"):
-                preload(sam_img)
+                sam_img = prepare(image, sam_hw)
+        on_card = isinstance(sam_img, SamFrame) and sam_img.pixels.is_cuda
+        timing.count("sam_frame_on_card" if on_card else "sam_frame_on_host")
         predictor = getattr(self.mask_predict_fn, "predictor", None)
         overlap = not sam_params.cut_masks_by_edges
         r1_handle = []
@@ -337,8 +346,8 @@ def wire_mask_predictor(predictor):
     Returns ``mask_predict_fn`` (the statistics path) with ``.select_round``
     attached: one selection round with NMS on the device, plus its two-phase
     ``dispatch`` / ``finish`` protocol, the contract ``infer_masks`` keys on;
-    ``.predictor`` is the predictor, and ``.preload`` its
-    ``preload_image`` where it has one.
+    ``.predictor`` is the predictor, and ``.prepare_frame`` its
+    ``prepare_frame`` where it has one.
     """
 
     def _to_input_xy(image_uint8, kps_norm):
@@ -385,9 +394,9 @@ def wire_mask_predictor(predictor):
     select_round.finish = _select_finish
     mask_predict_fn.select_round = select_round
     mask_predict_fn.predictor = predictor
-    preload = getattr(predictor, "preload_image", None)
-    if preload is not None:
-        mask_predict_fn.preload = preload
+    prepare = getattr(predictor, "prepare_frame", None)
+    if prepare is not None:
+        mask_predict_fn.prepare_frame = prepare
     return mask_predict_fn
 
 

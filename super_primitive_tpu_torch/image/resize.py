@@ -56,6 +56,35 @@ def _linear_taps(dst: int, src: int, clamp_weight: bool):
     return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f.astype(np.float32)
 
 
+ONE = 2048  # 1 << INTER_RESIZE_COEF_BITS: the uint8 path's fixed-point one
+
+
+def _fixed_taps(dst: int, src: int, clamp_weight: bool):
+    """:func:`_linear_taps` with the first tap's weight in OpenCV's 11-bit
+    fixed point (the second's is ``ONE`` less it), as the uint8 path
+    rounds it."""
+    s0, s1, f = _linear_taps(dst, src, clamp_weight)
+    return s0, s1, np.round((1.0 - f) * ONE).astype(np.int64)
+
+
+def linear_taps_u8(src_hw: tuple[int, int], dst_hw: tuple[int, int]):
+    """(sy0, sy1, ay0, sx0, sx1, ax0) int64: :func:`linear_resize`'s uint8
+    path from ``src_hw`` to ``dst_hw`` as fixed-point taps, its branch
+    chosen by the shapes as it chooses it.  The copy is taps (i, i, ONE)
+    and the exact 2x reduction (2i, 2i + 1, ONE / 2) on both axes: with
+    those, the taps' arithmetic gives the copy and the 2x2 mean rounded
+    half up, byte for byte (no shift drops a bit)."""
+    (Hs, Ws), (H, W) = src_hw, dst_hw
+    if (Hs, Ws) == (H, W) or (Hs, Ws) == (2 * H, 2 * W):
+        k = Hs // H
+        taps = []
+        for n in (H, W):
+            i = np.arange(n, dtype=np.int64)
+            taps += [k * i, k * i + k - 1, np.full(n, ONE // k, np.int64)]
+        return tuple(taps)
+    return (*_fixed_taps(H, Hs, clamp_weight=False), *_fixed_taps(W, Ws, clamp_weight=True))
+
+
 def linear_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     """Bilinear resize of an (H, W, C) uint8 or float32 image with
     cv2.INTER_LINEAR semantics.
@@ -74,18 +103,18 @@ def linear_resize(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
             s = a.astype(np.int32) + b + c + d
             return ((s + 2) >> 2).astype(np.uint8)
         return ((a + b) + (c + d)) * np.float32(0.25)
-    sy, sy1, fy = _linear_taps(H, Hs, clamp_weight=False)
-    sx, sx1, fx = _linear_taps(W, Ws, clamp_weight=True)
     if x.dtype == np.uint8:
-        one = 2048  # 1 << INTER_RESIZE_COEF_BITS
-        ax0 = np.round((1.0 - fx) * one).astype(np.int64)[None, :, None]
-        ay0 = np.round((1.0 - fy) * one).astype(np.int64)[:, None, None]
+        sy, sy1, ay0 = _fixed_taps(H, Hs, clamp_weight=False)
+        sx, sx1, ax0 = _fixed_taps(W, Ws, clamp_weight=True)
+        ax0, ay0 = ax0[None, :, None], ay0[:, None, None]
         xi = x.astype(np.int64)
-        hor = xi[:, sx] * ax0 + xi[:, sx1] * (one - ax0)
+        hor = xi[:, sx] * ax0 + xi[:, sx1] * (ONE - ax0)
         out = (
-            (((hor[sy] >> 4) * ay0) >> 16) + (((hor[sy1] >> 4) * (one - ay0)) >> 16) + 2
+            (((hor[sy] >> 4) * ay0) >> 16) + (((hor[sy1] >> 4) * (ONE - ay0)) >> 16) + 2
         ) >> 2
         return np.clip(out, 0, 255).astype(np.uint8)
+    sy, sy1, fy = _linear_taps(H, Hs, clamp_weight=False)
+    sx, sx1, fx = _linear_taps(W, Ws, clamp_weight=True)
     wx = fx[None, :, None]
     wy = fy[:, None, None]
     hor = x[:, sx] * (1.0 - wx) + x[:, sx1] * wx

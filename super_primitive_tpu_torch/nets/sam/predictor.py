@@ -6,7 +6,10 @@ Port of ``super_primitive_tpu/nets/sam/predictor.py``.
 The encode and decode half (:class:`Sam`, :class:`SamPredictor`): resize
 the longest side to ``target_length`` (cv2 INTER_LINEAR semantics, by
 ``image/resize.linear_resize``), normalise with ``PIXEL_MEAN`` /
-``PIXEL_STD``, zero-pad to a square, encode with the ViT; then per prompt
+``PIXEL_STD``, zero-pad to a square, encode with the ViT
+(:meth:`SamPredictor.prepare_frame` makes the resized frame on the device
+from the keyframe's own image instead, both of the JAX package's
+``cv2.resize`` calls in one kernel, ``ops/sam_frame``); then per prompt
 the prompt encoder (one positive point and the label -1 pad point SAM
 appends when there is no box) and the mask decoder give 4 low-res mask
 logits, of which mask 0 is dropped (multimask output).  With
@@ -61,6 +64,7 @@ from torch import nn
 
 from ...image.resize import linear_resize, resize_bilinear
 from ...ops import phase_counts as k3
+from ...ops import sam_frame as frame_op
 from ...parallel.mesh import gather_rows, shard_rows
 from ...utils import timing
 from .image_encoder import VIT_H, ImageEncoderViT, ViTConfig
@@ -268,6 +272,19 @@ class DeferredMasks:
         return self._host
 
 
+class SamFrame:
+    """An image at the mask generation's resolution whose pixels are never
+    on the host: SAM's input frame made from it on the device
+    (:meth:`SamPredictor.prepare_frame`).  It stands where that image
+    stood, for :meth:`SamPredictor.set_image` and the prompt rounds:
+    ``shape`` is the image's (h, w, 3), and the object itself is what the
+    predictor's cache of the encoded image keys on."""
+
+    def __init__(self, pixels: torch.Tensor, hw: tuple[int, int]):
+        self.pixels = pixels  # (h2, w2, 3) uint8 input frame
+        self.shape = (int(hw[0]), int(hw[1]), int(pixels.shape[2]))
+
+
 class PromptRounds:
     """The SAM predictor's prompt-round methods over a subclass's decode.
 
@@ -451,26 +468,50 @@ class SamPredictor(PromptRounds):
         self._input_hw = None
         self._orig_hw = None
         self._last_image = None
-        self._preload = None
+        self._staging = None  # (pinned buffer, event after its last copy)
 
     # -------------------------------------------------------------- image
-    def _upload(self, image_hwc_uint8: np.ndarray):
-        """(resized uint8 (h2, w2, 3) on the device, (h2, w2)); a pinned,
-        non-blocking copy to a card."""
+    def _upload(self, image_hwc_uint8: np.ndarray) -> torch.Tensor:
+        """The input frame of an image given at its own size: the longest
+        side resized on the host (``linear_resize``), then copied to the
+        device; (h2, w2, 3) uint8."""
         H, W = image_hwc_uint8.shape[:2]
         h2, w2 = get_preprocess_shape(H, W, self.target_length)
-        host = torch.from_numpy(linear_resize(np.asarray(image_hwc_uint8), (h2, w2)))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True), (h2, w2)
+        host = linear_resize(np.asarray(image_hwc_uint8), (h2, w2))
+        return torch.from_numpy(host).to(self.device)
 
-    def preload_image(self, image_hwc_uint8: np.ndarray):
-        """Resize and start the upload without encoding; the next
-        ``set_image`` of the same array object consumes it."""
-        if self._last_image is image_hwc_uint8 or (
-                self._preload is not None and self._preload[0] is image_hwc_uint8):
-            return
-        self._preload = (image_hwc_uint8, *self._upload(image_hwc_uint8))
+    def _stage(self, image_hwc_uint8: np.ndarray) -> torch.Tensor:
+        """The uint8 image on the device.  To a card it goes through one
+        pinned buffer that the predictor keeps, without blocking; the
+        buffer is written again only once the event recorded after its last
+        copy has passed, so no copy reads bytes of a later image."""
+        image = np.asarray(image_hwc_uint8)
+        if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+            raise ValueError(f"expected an (H, W, 3) uint8 image, got {image.shape} {image.dtype}")
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(image))
+        if self._staging is None or self._staging[0].shape != image.shape:
+            self._staging = (torch.empty(image.shape, dtype=torch.uint8, pin_memory=True),
+                             torch.cuda.Event())
+        else:
+            self._staging[1].synchronize()
+        buf, copied = self._staging
+        buf.numpy()[...] = image
+        dev = buf.to(self.device, non_blocking=True)
+        copied.record(torch.cuda.current_stream(self.device))
+        return dev
+
+    def prepare_frame(self, image_hwc_uint8: np.ndarray, infer_hw: tuple[int, int]) -> SamFrame:
+        """The image resized to ``infer_hw`` as :meth:`set_image` takes it,
+        made on the device: the (H, W, 3) uint8 image is uploaded and
+        ``ops/sam_frame`` resizes it to ``infer_hw`` and that to the input
+        frame in one pass (the plain version for a CPU predictor), the same
+        bytes as :meth:`set_image` of ``linear_resize(image, infer_hw)``
+        would encode.  No pixel at ``infer_hw`` is made on the host."""
+        infer_hw = (int(infer_hw[0]), int(infer_hw[1]))
+        input_hw = get_preprocess_shape(*infer_hw, self.target_length)
+        return SamFrame(frame_op.sam_frame(self._stage(image_hwc_uint8), infer_hw, input_hw),
+                        infer_hw)
 
     def encode(self, img_u8: torch.Tensor) -> torch.Tensor:
         """(h2, w2, 3) uint8 on the device -> (1, S, S, C) float32 features:
@@ -503,20 +544,21 @@ class SamPredictor(PromptRounds):
         self._orig_hw = None if orig_hw is None else tuple(orig_hw)
         self._last_image = None
 
-    def set_image(self, image_hwc_uint8: np.ndarray):
-        """Resize the longest side, normalise, pad and encode.  Setting the
-        same array object twice in a row encodes once (the two prompt rounds
-        of a keyframe share the image)."""
+    def set_image(self, image_hwc_uint8):
+        """Resize the longest side, normalise, pad and encode: an (H, W, 3)
+        uint8 array is resized on the host, a :class:`SamFrame` from
+        :meth:`prepare_frame` is resized already.  Setting the same object
+        twice in a row encodes once (the two prompt rounds of a keyframe
+        share the image)."""
         if self._features is not None and self._last_image is image_hwc_uint8:
             return
-        pre, self._preload = self._preload, None
-        if pre is not None and pre[0] is image_hwc_uint8:
-            dev, hw = pre[1], pre[2]
+        if isinstance(image_hwc_uint8, SamFrame):
+            dev = image_hwc_uint8.pixels
         else:
-            dev, hw = self._upload(image_hwc_uint8)
+            dev = self._upload(image_hwc_uint8)
         self._features = self.encode(dev)
         self._last_image = image_hwc_uint8
-        self._input_hw = hw
+        self._input_hw = tuple(dev.shape[:2])
         self._orig_hw = tuple(image_hwc_uint8.shape[:2])
 
     # ------------------------------------------------------------- decode

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("bini_apply.cu", "bini_cg.cu", "phase_counts.cu", "ext_attention.cu")
+SOURCES = ("bini_apply.cu", "bini_cg.cu", "phase_counts.cu", "ext_attention.cu",
+           "sam_frame.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -44,6 +44,7 @@ from super_primitive_tpu_torch.frontend import process_frame as tpf
 from super_primitive_tpu_torch.nets import nnet as tnnet
 from super_primitive_tpu_torch.nets.sam import image_encoder as tie
 from super_primitive_tpu_torch.nets.sam import predictor as tp
+from super_primitive_tpu_torch.utils import timing
 
 TINY_1024 = dict(img_size=1024, embed_dim=32, depth=2, num_heads=2, window_size=14,
                  global_attn_indexes=(1,), out_chans=16)
@@ -105,11 +106,14 @@ def keyframes(trees):
         return decode(pts)
 
     tsam._decode = spy
+    counted, count = [], timing.count
+    timing.count = lambda name, n=1: (counted.append(name), count(name, n))
     try:
         kt = tfp.process_to_kf(frame["image"], frame["intrinsics"])
     finally:
         del tsam._decode
-    return kj, kt, (jsam, tsam, prompts)
+        timing.count = count
+    return kj, kt, (jsam, tsam, prompts, counted)
 
 
 def test_keyframe_integer_outputs_identical(keyframes):
@@ -129,7 +133,7 @@ def test_keyframe_logdepth_and_image(keyframes):
 
 
 def test_round_statistics_differ_only_at_threshold(keyframes):
-    *_, (jsam, tsam, prompts) = keyframes
+    *_, (jsam, tsam, prompts, _) = keyframes
     assert len(prompts) == 2  # both prompt rounds, each decoded once
     h, w = tsam._input_hw
     for pts in prompts:
@@ -146,6 +150,16 @@ def test_round_statistics_differ_only_at_threshold(keyframes):
                                                  mode="bilinear")[0, 0, :h, :w]
             assert d_area[b, m] <= int((up.abs() <= 1e-4).sum()), (b, m)
         assert rel_err(t_iou, j_iou) <= 3e-5
+
+
+def test_the_real_predictor_makes_the_sam_frame(keyframes):
+    """The keyframe hands the real predictor the image (``prepare_frame``);
+    on the CPU the frame's plain version makes it, counted as made on the
+    host."""
+    *_, (_, tsam, _, counted) = keyframes
+    assert isinstance(tsam._last_image, tp.SamFrame) and tsam._last_image.shape == (96, 128, 3)
+    assert tsam._input_hw == (768, 1024)
+    assert counted.count("sam_frame_on_host") == 1 and "sam_frame_on_card" not in counted
 
 
 def rel_err(got, want) -> float:
@@ -173,9 +187,9 @@ def test_load_npz_tree(trees, npz_files):
 def test_build_frontend(trees):
     config = frontend_cfg(tload_config)
     fe = tpf.build_frontend(config, *trees, device="cpu")
-    assert fe.normals_fn.accepts_uint8 and fe.mask_predict_fn.preload is not None
+    assert fe.normals_fn.accepts_uint8 and fe.mask_predict_fn.prepare_frame is not None
     predictor = fe.mask_predict_fn.predictor
-    assert fe.mask_predict_fn.preload == predictor.preload_image
+    assert fe.mask_predict_fn.prepare_frame == predictor.prepare_frame
     assert predictor.compute_dtype == torch.bfloat16
     assert predictor.model.image_encoder.pos_embed.dtype == torch.bfloat16
     assert predictor.model.prompt_encoder.no_mask_embed.weight.dtype == torch.float32

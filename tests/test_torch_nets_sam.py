@@ -212,15 +212,15 @@ def test_set_image_non_square(predictors):
     tp.set_image(image)
     assert tp._input_hw == jp._input_hw == (51, 64)
     assert rel(tp._features, jp._features) <= ENC_BOUND
-    # the same array object encodes once; a preload is consumed by set_image
+    # the same array object encodes once; a prepared frame encodes to the
+    # same features
     feats = tp._features
     tp.set_image(image)
     assert tp._features is feats
-    img2 = image.copy()
-    tp.preload_image(img2)
-    assert tp._preload is not None
-    tp.set_image(img2)
-    assert tp._preload is None and torch.equal(tp._features, feats)
+    frame = tp.prepare_frame(image, image.shape[:2])
+    tp.set_image(frame)
+    assert tp._last_image is frame and torch.equal(tp._features, feats)
+    assert tp._input_hw == (51, 64) and tp._orig_hw == (48, 60)
 
 
 def test_select_round(predictors):

@@ -22,6 +22,7 @@ from super_primitive_tpu_torch.config import load_config
 from super_primitive_tpu_torch.data.synthetic import PlanesSequence
 from super_primitive_tpu_torch.frontend import process_frame
 from super_primitive_tpu_torch.frontend.fakes import StructuredFakeFrontend
+from super_primitive_tpu_torch.image.resize import linear_resize
 from super_primitive_tpu_torch.utils import timing
 from super_primitive_tpu_torch.utils.timing import RSSSampler, StageTimer
 
@@ -147,7 +148,12 @@ def keyframe_run():
     fe = StructuredFakeFrontend(cfg, n_cells=24, device="cpu", device_sam=True)
     fe.observe(f)
     preloaded = []
-    fe.mask_predict_fn.preload = preloaded.append  # the real predictor's upload
+
+    def prepare_frame(image, hw):  # the real predictor's frame on the device
+        preloaded.append(linear_resize(image, hw))
+        return preloaded[-1]
+
+    fe.mask_predict_fn.prepare_frame = prepare_frame
     returned = []
     infer_masks = process_frame.infer_masks
 
@@ -175,6 +181,7 @@ def test_the_keyframe_counts_prompts_masks_and_segments(keyframe_run):
     assert got["masks_kept"] == masks.shape[0] > 0
     assert got["segments"] == kf["regions"].shape[0] > 0
     assert got["host_reads"] == timer.syncs["keyframe"] > 0
+    assert got["sam_frame_on_host"] == 1 and "sam_frame_on_card" not in got
     assert timer.counters == got
 
 
